@@ -1,7 +1,7 @@
 /*
  * tpuflow._fastio — native IO runtime for frame streaming.
  *
- * TPU-native equivalent of the reference's host/streaming side: the
+ * Equivalent of the reference's host/streaming side: the
  * $readmemh frame codec (reference rtl/common/frame_buffer_simple.sv:41-48
  * loads .mem files; python tooling writes them line-by-line) and a
  * double-buffered frame prefetcher (the host analog of the RTL's

@@ -2,7 +2,7 @@
 cross-platform calibration helper).
 
 Usage:
-    python scripts/vo_capture.py out.json [--cpu] [--backend jnp|pallas]
+    python scripts/vo_capture.py out.json [--cpu] [--backend jnp|xla|pallas]
         [--pyramid-config NAME]
 
 Writes the same document shape as vo_verifier.update_baseline, with
@@ -17,15 +17,19 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+from tpuflow.compile_cache import setup_compile_cache  # noqa: E402
+from tpuflow.flow.backend import BACKENDS  # noqa: E402
+
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("out")
     ap.add_argument("--cpu", action="store_true")
-    ap.add_argument("--backend", default="jnp", choices=["jnp", "pallas"])
+    ap.add_argument("--backend", default="jnp", choices=BACKENDS)
     ap.add_argument("--pyramid-config", default="default")
     args = ap.parse_args()
 
+    setup_compile_cache()
     import jax
 
     if args.cpu:

@@ -1,6 +1,7 @@
 """Pyramidal LK component and integration tests."""
 
 import numpy as np
+import pytest
 import jax.numpy as jnp
 from scipy.ndimage import gaussian_filter as sp_gauss
 from scipy.ndimage import map_coordinates
@@ -186,7 +187,7 @@ def test_adaptive_band_picks_full_on_vertical_motion():
     """translate_vertical (GT v=10): every level boundary must select the
     full band, making the adaptive output bit-identical to the static
     full-band fast path — the accuracy contract the static narrow band
-    breaks (EPE 2.92 -> 8.00, docs/verification_results_pallas.md)."""
+    breaks (EPE 2.92 -> 8.00, docs/verification_results_fast.md)."""
     import dataclasses
 
     from tpuflow.core.config import PYRAMID_CONFIGS
@@ -195,10 +196,10 @@ def test_adaptive_band_picks_full_on_vertical_motion():
     cfg_a = PYRAMID_CONFIGS["adaptive_vertical"]
     cfg_full = dataclasses.replace(cfg_a, adaptive_v_bands=None)
     ua, va = lucas_kanade_pyramidal(
-        f0, f1, config=cfg_a, backend="jnp", rtl_clamp=True
+        f0, f1, config=cfg_a, backend="xla"
     )
     uf, vf = lucas_kanade_pyramidal(
-        f0, f1, config=cfg_full, backend="jnp", rtl_clamp=True
+        f0, f1, config=cfg_full, backend="xla"
     )
     np.testing.assert_array_equal(np.asarray(ua), np.asarray(uf))
     np.testing.assert_array_equal(np.asarray(va), np.asarray(vf))
@@ -219,16 +220,16 @@ def test_adaptive_band_picks_narrow_on_horizontal_motion():
     cfg_n3 = dataclasses.replace(cfg_a, adaptive_v_bands=None, max_disp_v=3)
 
     ua, va = lucas_kanade_pyramidal(
-        f0, f1, config=cfg_a, backend="jnp", rtl_clamp=True
+        f0, f1, config=cfg_a, backend="xla"
     )
     pp = jnp_ref.build_gaussian_pyramid(f0, 3)
     pc = jnp_ref.build_gaussian_pyramid(f1, 3)
     u = jnp.zeros(pp[0].shape)
     v = jnp.zeros(pp[0].shape)
-    u, v = _refine_level(pp[0], pc[0], u, v, cfg_full, "jnp", True)
+    u, v, _ = _refine_level(pp[0], pc[0], u, v, cfg_full, "xla")
     for lvl in (1, 2):
         u, v = jnp_ref.upsample_flow(u, v, pp[lvl].shape)
-        u, v = _refine_level(pp[lvl], pc[lvl], u, v, cfg_n3, "jnp", True)
+        u, v, _ = _refine_level(pp[lvl], pc[lvl], u, v, cfg_n3, "xla")
     np.testing.assert_array_equal(np.asarray(ua), np.asarray(u))
     np.testing.assert_array_equal(np.asarray(va), np.asarray(v))
 
@@ -249,29 +250,54 @@ def test_adaptive_band_ignored_in_parity_mode():
     np.testing.assert_array_equal(np.asarray(va), np.asarray(vd))
 
 
-def test_production_fullband_matches_escalated_production():
-    """`production_fullband` (the worst-case-bounded serving config,
-    DESIGN §5) is exactly the production kernels at the static full
-    band: on vertical motion — where production's ladder escalates to
-    the full band at every level — the two configs are bit-identical;
-    and the config carries production's kernel flags so the fast path
-    runs the same packed/relaxed kernels."""
+@pytest.mark.parametrize(
+    "pattern, band", [("translate_medium", 2), ("translate_vertical", 8)]
+)
+def test_production_ladder_dispatch(pattern, band):
+    """The serving config's (2, 3, 8) ladder on the fast path: benign
+    horizontal motion runs the finer levels at +-2, real vertical motion
+    escalates them to the full band. Either way the result is
+    bit-identical to the manually composed static-band run (the
+    coarsest level always refines at the full band)."""
+    import dataclasses
+
     from tpuflow.core.config import PYRAMID_CONFIGS
+    from tpuflow.flow.pyramidal import _refine_level
 
-    prod = PYRAMID_CONFIGS["production"]
-    full = PYRAMID_CONFIGS["production_fullband"]
-    assert full.adaptive_v_bands is None
-    assert full.max_disp_v_effective == full.max_disp == prod.max_disp
-    assert full.relaxed_order == prod.relaxed_order
-    assert full.warp_packed_u8 == prod.warp_packed_u8
-    assert full.warp_packed_u16 == prod.warp_packed_u16
+    f0, f1 = _pattern_pair(pattern)
+    cfg = PYRAMID_CONFIGS["production"]
+    cfg_full = dataclasses.replace(cfg, adaptive_v_bands=None)
+    cfg_band = dataclasses.replace(cfg, adaptive_v_bands=None, max_disp_v=band)
 
-    f0, f1 = _pattern_pair("translate_vertical")
-    up, vp = lucas_kanade_pyramidal(
-        f0, f1, config=prod, backend="jnp", rtl_clamp=True
+    ua, va = lucas_kanade_pyramidal(f0, f1, config=cfg, backend="xla")
+    pp = jnp_ref.build_gaussian_pyramid(f0, 3)
+    pc = jnp_ref.build_gaussian_pyramid(f1, 3)
+    u = jnp.zeros(pp[0].shape)
+    v = jnp.zeros(pp[0].shape)
+    u, v, _ = _refine_level(pp[0], pc[0], u, v, cfg_full, "xla")
+    for lvl in (1, 2):
+        u, v = jnp_ref.upsample_flow(u, v, pp[lvl].shape)
+        u, v, _ = _refine_level(pp[lvl], pc[lvl], u, v, cfg_band, "xla")
+    np.testing.assert_array_equal(np.asarray(ua), np.asarray(u))
+    np.testing.assert_array_equal(np.asarray(va), np.asarray(v))
+
+
+@pytest.mark.parametrize("backend", ["jnp", "xla"])
+def test_step_reports_iterations(backend):
+    """``return_iterations`` reports each level's refinement count
+    (coarsest first) without changing the flow."""
+    from tpuflow.core.config import PYRAMID_CONFIGS
+    from tpuflow.flow.pyramidal import lucas_kanade_pyramidal_step
+
+    f0, f1 = _pattern_pair("translate_medium")
+    cfg = PYRAMID_CONFIGS["production"]
+    pyr = jnp_ref.build_gaussian_pyramid(f0, cfg.levels)
+    u, v, n, _ = lucas_kanade_pyramidal_step(
+        pyr, f1, cfg, backend=backend, return_iterations=True
     )
-    uf, vf = lucas_kanade_pyramidal(
-        f0, f1, config=full, backend="jnp", rtl_clamp=True
-    )
-    np.testing.assert_array_equal(np.asarray(up), np.asarray(uf))
-    np.testing.assert_array_equal(np.asarray(vp), np.asarray(vf))
+    u2, v2, _ = lucas_kanade_pyramidal_step(pyr, f1, cfg, backend=backend)
+    np.testing.assert_array_equal(np.asarray(u), np.asarray(u2))
+    np.testing.assert_array_equal(np.asarray(v), np.asarray(v2))
+    n = np.asarray(n)
+    assert n.shape == (cfg.levels,) and n.dtype == np.int32
+    assert np.all((n >= 1) & (n <= cfg.iterations))

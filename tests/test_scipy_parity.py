@@ -96,7 +96,7 @@ def test_uniform_window_sum(img):
 
 
 def test_banded_resample_properties():
-    """The r4 block-banded MXU resample (ops._banded_left/_banded_right):
+    """The block-banded matmul resample (ops._banded_left/_banded_right):
     (a) suite-resolution outputs (<= _BAND_BLOCK) take the dense branch
     and are bit-identical to the plain matrix product — every parity and
     committed-baseline path is unchanged; (b) large outputs agree with

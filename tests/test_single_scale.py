@@ -100,10 +100,8 @@ def test_gaussian_weights_flag_changes_solution(small_frame_pair):
 
 
 def test_confidence_output(frame_pair):
-    """return_confidence: |det| plane, zero border, high on texture,
-    identical across backends to f32 rounding."""
+    """return_confidence: |det| plane, zero border, high on texture."""
     import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
 
     from tpuflow.flow import lucas_kanade_single_scale
     from tpuflow.kernels import jnp_ref
@@ -130,10 +128,3 @@ def test_confidence_output(frame_pair):
     det = np.abs(sxx * syy - sxy * sxy)
     np.testing.assert_allclose(conf[2:-2, 2:-2], det, rtol=1e-5)
 
-    with pltpu.force_tpu_interpret_mode():
-        up, vp, cp = lucas_kanade_single_scale(
-            prev, curr, backend="pallas", return_confidence=True
-        )
-    np.testing.assert_allclose(
-        np.asarray(cp), conf, rtol=1e-4, atol=1e-2
-    )

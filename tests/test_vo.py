@@ -887,7 +887,7 @@ def test_chunked_odometry_loop_closure_cancels_drift():
 
 @pytest.mark.slow
 def test_long_session_compact_bounded_memory():
-    """VERDICT r1 item 8: a >=200-frame session under periodic
+    """A >=200-frame session under periodic
     compact() keeps peak state bounded and the trajectory healthy.
 
     Calibration (measured on the 8-device CPU mesh): peak observation
@@ -1056,7 +1056,7 @@ def test_tiled_flow_session_matches_untiled():
     """OdometrySession(mesh=...): the front-end dense flow runs
     spatially tiled across the device mesh (BASELINE config 5's
     multi-host tiled flow feeding the BA back-end). Tiled flow carries
-    the fast-path saturation semantics (rtl_clamp), so the reference
+    the fast-path saturation semantics (backend "xla"), so the reference
     point is an untiled session with the same clamped flow. The strong
     guarantee is at the FRONT-END: identical track observations (tiled
     flow == untiled to ~1e-4 px). The monocular BA on a short planar
@@ -1088,8 +1088,7 @@ def test_tiled_flow_session_matches_untiled():
             from tpuflow.vo.device_loop import FrontEnd
 
             sess._fe = FrontEnd(
-                grid_step=16, keyframe_stride=1, backend="jnp",
-                rtl_clamp=True,
+                grid_step=16, keyframe_stride=1, backend="xla",
             )
         for f in frames:
             sess.process_frame(f)

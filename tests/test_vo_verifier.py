@@ -155,9 +155,7 @@ def test_vo_suite_within_committed_baseline():
     The threshold is CPU_CROSS_HOST_THRESHOLD, not the flow suite's 10%:
     the CPU trajectory numbers move up to ~50% between host CPU
     generations (XLA:CPU codegen; see the constant's note) while staying
-    absolutely excellent — the tight 10% trajectory gate lives on the
-    TPU fast path (vo_pallas_baseline.json), whose numerics are
-    host-independent. The absolute bounds below are the host-stable
+    absolutely excellent. The absolute bounds below are the host-stable
     accuracy ruler for the CPU run."""
     results = vo_verifier.run_suite(verbose=False)
     assert vo_verifier.compare_against_baseline(
@@ -249,10 +247,11 @@ def test_platform_provenance_and_cross_floors(tmp_path):
         abs_floor=vo_verifier.CROSS_METRIC_FLOORS, backend="jnp",
     )
 
-    thr, floor = vo_verifier.default_threshold("pallas", "tpu", path)
-    assert thr == 10.0 and floor == 1e-4
-    thr, floor = vo_verifier.default_threshold("jnp", "tpu", path)
+    thr, floor = vo_verifier.default_threshold("cpu", path)
     assert thr == vo_verifier.CPU_CROSS_HOST_THRESHOLD
+    assert floor is vo_verifier.CROSS_METRIC_FLOORS
+    thr, floor = vo_verifier.default_threshold("gpu", path)
+    assert thr == vo_verifier.CROSS_PLATFORM_THRESHOLD
     assert floor is vo_verifier.CROSS_METRIC_FLOORS
 
 

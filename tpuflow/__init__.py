@@ -1,4 +1,4 @@
-"""tpuflow — a TPU-native dense optical-flow + visual-odometry framework.
+"""tpuflow — a dense optical-flow + visual-odometry framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 ``rothej/optical-flow-fpga`` reference (Lucas-Kanade dense flow accelerator):
@@ -6,11 +6,11 @@ A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 - ``tpuflow.core``     numerics that match the reference golden model's SciPy
                        semantics (symmetric-boundary convolution, Gaussian
                        smoothing, bilinear ``map_coordinates`` resampling).
-- ``tpuflow.kernels``  compute kernels: pure-jnp reference twins and fused
-                       Pallas TPU kernels for the hot path.
+- ``tpuflow.kernels``  compute kernels: pure-jnp references and the fused
+                       Pallas (Triton) LK refinement kernel for the GPU.
 - ``tpuflow.flow``     single-scale and pyramidal Lucas-Kanade drivers.
-- ``tpuflow.sharding`` multi-chip spatial tiling: mesh setup, halo exchange,
-                       sharded flow.
+- ``tpuflow.sharding`` multi-device spatial tiling: mesh setup, halo
+                       exchange, sharded flow.
 - ``tpuflow.eval``     the 13-pattern verification harness, metrics, and
                        baseline regression gate (reference: python/
                        optical_flow_verifier.py, flow_metrics.py).
@@ -22,11 +22,18 @@ A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 
 __version__ = "0.1.0"
 
-from tpuflow.flow.single_scale import lucas_kanade_single_scale
-from tpuflow.flow.pyramidal import lucas_kanade_pyramidal
-
 __all__ = [
     "lucas_kanade_single_scale",
     "lucas_kanade_pyramidal",
     "__version__",
 ]
+
+
+def __getattr__(name: str):
+    # Lazy, so that ``tpuflow.compile_cache`` can be imported (and the
+    # cache set up) before anything imports JAX.
+    if name in ("lucas_kanade_single_scale", "lucas_kanade_pyramidal"):
+        from tpuflow import flow
+
+        return getattr(flow, name)
+    raise AttributeError(f"module 'tpuflow' has no attribute {name!r}")

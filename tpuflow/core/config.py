@@ -29,32 +29,27 @@ class PyramidConfig:
     # Texture gate on the structure-tensor determinant
     # (reference: python/lucas_kanade_core.py:131).
     det_threshold: float = 1e-4
-    # Fast-path (backend="pallas") per-level flow saturation in pixels —
+    # Fast-path (tpuflow.flow.backend) per-level flow saturation in pixels —
     # the analog of the RTL's S8.7 +-8 px solver clamp
     # (rtl/unopt/flow_solver.sv:134-144). Inactive for motions within the
     # band, where the fast path matches the parity path exactly. The jnp
     # parity path never clamps (golden-model semantics).
     max_disp: int = 8
-    # Optional narrower *vertical* saturation band for the fast path.
-    # The banded warp kernel's candidate-row gather loop (the frame-time
-    # hot spot at 1080p) runs 2*max_disp_v + 2 gather pairs, so a narrow
-    # vertical band cuts warp time roughly linearly. The warp/refine
-    # kernels saturate carried vertical flow at +-max_disp_v (like the
-    # RTL's clamp, but asymmetric); for horizontally-dominant motion
-    # this clamps only untextured-region LK noise, which measured
-    # *slightly better* suite metrics (the clamp regularizes garbage
-    # vectors). None = max_disp (full parity-band behavior).
+    # Optional narrower *vertical* saturation band for the fast path:
+    # carried vertical flow saturates at +-max_disp_v (like the RTL's
+    # clamp, but asymmetric). For horizontally-dominant motion this
+    # clamps only untextured-region LK noise, which measured *slightly
+    # better* suite metrics (the clamp regularizes garbage vectors).
+    # None = max_disp (full parity-band behavior).
     max_disp_v: int | None = None
-    # Adaptive per-level vertical band (fast path / rtl_clamp only):
+    # Adaptive per-level vertical band (fast backends only):
     # ascending candidate bands, e.g. (3, 8). At each level boundary the
     # coarse level's solved flow — already upsampled to the new level —
     # picks the narrowest candidate whose clamp would be inactive on the
     # masked interior (border-margin excluded: warp-OOB/clamp garbage
     # there is what broke the earlier global-max dispatch, DESIGN.md §3),
-    # and ``lax.switch`` dispatches one of the precompiled refine
-    # variants. In-kernel gating was measured harmful (scalar reduce +
-    # scf.if serialize the vector pipeline); level-boundary dispatch
-    # executes exactly one variant per level per frame. The coarsest
+    # and ``lax.switch`` dispatches one of the compiled refine variants,
+    # executing exactly one per level per frame. The coarsest
     # level (tiny, cheap) always runs the full band. None = static band
     # (``max_disp_v`` everywhere).
     adaptive_v_bands: tuple[int, ...] | None = None
@@ -64,38 +59,6 @@ class PyramidConfig:
     # outlier vectors anywhere cannot force the wide band, while any
     # real moving region (>0.5% of the frame) still does.
     adaptive_v_frac: float = 0.005
-    # Relaxed-parity fast math (backend="pallas" only): reassociate the
-    # 5x5 window sums into pairwise-doubling shift trees
-    # (pallas_lk._sliding_sum_tree) — 3 adds/3 shifted views per axis
-    # instead of 4/4. Changes f32 rounding (not bit-parity with the
-    # golden model), so it carries its own committed regression baseline
-    # (tpuflow/eval/data/pallas_relaxed_baseline.json) like
-    # narrow_vertical does. The RTL's own window accumulator sums in
-    # adder trees too (rtl/unopt/window_accumulator.sv:150-167).
-    relaxed_order: bool = False
-    # Packed-u8 finest-level warp (backend="pallas" only): pack the four
-    # bilinear corner bytes of a candidate-row pair into one i32 word so
-    # the banded warp's gather loop — the measured frame-time hot spot,
-    # gather-issue-bound at ~3 cycles/vreg-gather — runs ONE hardware
-    # gather per candidate row instead of four. Measured at 1080p on
-    # v5e: 0.722 -> 0.257 ms full band, and BIT-IDENTICAL to the exact
-    # kernel on TPU. Correct only under the 8-bit input contract: frame
-    # values must be integers in [0, 255] (the finest pyramid level is
-    # the raw frame, so any u8-sourced stream qualifies; coarse levels
-    # are blurred/resampled floats and always use the exact kernel).
-    # Callers feeding non-integer float frames must leave this off.
-    warp_packed_u8: bool = False
-    # Packed-u16 warp gathers (backend="pallas" only): two horizontal
-    # bilinear corners per i32 word as 8.8 fixed point (quantization
-    # step 1/256 gray — far below the blurred pyramid levels' gradient
-    # scale, unlike u8's half-gray step that was measured +23-33% MAE
-    # and rejected). Halves the banded warp's hardware gathers on the
-    # levels packed_u8 cannot serve: with both flags set, the finest
-    # level runs packed_u8 (bit-exact for 8-bit sources) and the COARSE
-    # levels run packed_u16. Measured r4 at 1080p full band: exact
-    # 0.749 ms -> u16 0.378 ms (see benchmarks/r04). Not bit-parity;
-    # configs using it carry their own gated regression baseline.
-    warp_packed_u16: bool = False
     description: str = ""
 
     def __post_init__(self):
@@ -136,9 +99,8 @@ PYRAMID_CONFIGS: dict[str, PyramidConfig] = {
     ),
     # Production fast-path config for horizontally-dominant motion
     # (vehicle-mounted / scanline cameras): vertical saturation band
-    # narrowed to +-3 px, halving the banded-warp gather loop. Accuracy
-    # impact is confined to patterns with |v| > 3 (see
-    # docs/verification_results_pallas.md narrow-band column).
+    # narrowed to +-3 px. Accuracy impact is confined to patterns with
+    # |v| > 3 (see docs/verification_results_fast.md).
     "narrow_vertical": PyramidConfig(
         levels=3, window_size=5, iterations=3, max_disp_v=3,
         description="3-level pyramid, vertical flow band narrowed to +-3 px",
@@ -148,55 +110,23 @@ PYRAMID_CONFIGS: dict[str, PyramidConfig] = {
     # the coarse-level solve sees real vertical motion — translate_
     # vertical-class inputs keep full-band accuracy instead of silently
     # saturating at +-3 (the static narrow band's failure mode,
-    # docs/verification_results_pallas.md).
+    # docs/verification_results_fast.md).
     "adaptive_vertical": PyramidConfig(
         levels=3, window_size=5, iterations=3, adaptive_v_bands=(3, 8),
         description="3-level pyramid, per-level vertical band selected "
         "from the coarse solve (3 or 8 px)",
     ),
-    # Relaxed-parity fast path: shift-tree window sums (see
-    # PyramidConfig.relaxed_order). Same flow semantics to f32
-    # reassociation rounding; own baseline column.
-    "relaxed_order": PyramidConfig(
-        levels=3, window_size=5, iterations=3, relaxed_order=True,
-        description="3-level pyramid, shift-tree window sums "
-        "(relaxed f32 summation order)",
-    ),
-    # The serving default for production deployments: adaptive vertical
-    # band (narrow-band warp cost on benign streams, full-band accuracy
-    # whenever the coarse solve sees vertical motion) + relaxed-order
-    # LK kernels (-17% kernel time; ~1e-6 reassociation rounding). Own
-    # gated baseline like every non-parity config.
-    # The band ladder includes +-2 (6 candidate rows): on streams whose
-    # coarse-level interior |v| stays under 1 px for >99.5% of pixels
-    # (the select rule's b-1 headroom) the warp runs at 6/8 the narrow
-    # band's gather cost. +-1 is deliberately NOT in the ladder: its
-    # headroom predicate would be frac(|v| > 0), which every stream
-    # fails (LK texture noise is nonzero everywhere — measured 100% of
-    # interior pixels on the bench stream), so it could only ever be
-    # selected by weakening the headroom below 1 px, which would clamp
-    # real sub-pixel motion.
+    # The serving config: the adaptive vertical band ladder. On
+    # streams whose coarse-level interior |v| stays under 1 px for
+    # >99.5% of pixels (the select rule's b-1 headroom) the finer levels
+    # run at +-2; real vertical motion escalates to +-3 or the full +-8.
+    # +-1 is deliberately NOT in the ladder: its headroom predicate
+    # would be frac(|v| > 0), which every stream fails (LK texture noise
+    # is nonzero everywhere — measured 100% of interior pixels on the
+    # bench stream), so it could only ever be selected by weakening the
+    # headroom below 1 px, which would clamp real sub-pixel motion.
     "production": PyramidConfig(
         levels=3, window_size=5, iterations=3, adaptive_v_bands=(2, 3, 8),
-        relaxed_order=True, warp_packed_u8=True, warp_packed_u16=True,
-        description="adaptive vertical band + relaxed-order kernels + "
-        "packed-u8 finest / packed-u16 coarse warp (8-bit input contract)",
-    ),
-    # Worst-case-bounded serving variant: the production kernels at the
-    # STATIC full ±8 band. At 4K the adaptive ladder's switch machinery
-    # costs ~1.15 ms/frame on adversarial streams — more than its
-    # benign-stream win at that resolution — so a 4K SLA written
-    # against the worst case runs this config: 9.60 ms (104 fps) on
-    # EVERY stream vs the adaptive config's 10.74 adversarial bound
-    # (measured, benchmarks/r05/fast_decomp_4k.json; DESIGN §5 serving
-    # guidance). At 1080p the adaptive ladder is effectively free
-    # adversarially (2.264 vs 2.254 ms) and much faster on benign
-    # streams, so `production` stays the default there. Accuracy is the
-    # full-band fast path's — the strongest of the gated columns.
-    "production_fullband": PyramidConfig(
-        levels=3, window_size=5, iterations=3,
-        relaxed_order=True, warp_packed_u8=True, warp_packed_u16=True,
-        description="static full-band production kernels (worst-case-"
-        "bounded serving latency; 8-bit input contract)",
+        description="adaptive vertical band ladder (2, 3 or 8 px)",
     ),
 }

@@ -28,10 +28,10 @@ import jax.numpy as jnp
 import numpy as np
 
 # Small-kernel 2-D correlations are computed as unrolled shifted
-# multiply-adds rather than lax.conv: XLA fuses them into one VPU pass,
-# they stay exact f32 (lax.conv at default precision demotes to bf16 MXU
-# passes on TPU; at Precision.HIGHEST it is ~50x slower than shifts),
-# and the accuracy gate is float32-vs-float32 within 10%.
+# multiply-adds rather than lax.conv: XLA fuses them into one
+# elementwise pass, they stay exact f32 (lax.conv at default precision
+# may run as TF32 on a GPU's tensor cores), and the accuracy gate is
+# float32-vs-float32 within 10%.
 
 
 def _corr2d_valid(x: jax.Array, k: np.ndarray | jax.Array) -> jax.Array:
@@ -125,6 +125,9 @@ def map_coordinates_bilinear(
     y: jax.Array,
     x: jax.Array,
     cval: float = 0.0,
+    *,
+    origin: tuple = (0, 0),
+    bounds: tuple[int, int] | None = None,
 ) -> jax.Array:
     """Bilinear sampling of ``img`` at float coordinates ``(y, x)``.
 
@@ -136,14 +139,21 @@ def map_coordinates_bilinear(
     (verified empirically against scipy 1.17). Samples exactly on the far
     edge (coord == N-1) interpolate with zero weight on the clamped
     out-of-range corner.
+
+    ``img`` may be a window of a larger image: ``origin`` is the integer
+    (row, col) of ``img[0, 0]`` in that image (traced values allowed)
+    and ``bounds`` its (rows, cols), the ``N`` of the out-of-range test.
+    ``(y, x)`` are then coordinates in the larger image, so a window
+    sees the same fractional parts, and the same samples, as the whole.
     """
     h, w = img.shape
+    n_y, n_x = bounds or (h, w)
     y0f = jnp.floor(y)
     x0f = jnp.floor(x)
     fy = (y - y0f).astype(img.dtype)
     fx = (x - x0f).astype(img.dtype)
-    y0 = y0f.astype(jnp.int32)
-    x0 = x0f.astype(jnp.int32)
+    y0 = y0f.astype(jnp.int32) - origin[0]
+    x0 = x0f.astype(jnp.int32) - origin[1]
 
     def corner(yi, xi):
         return img[jnp.clip(yi, 0, h - 1), jnp.clip(xi, 0, w - 1)]
@@ -157,7 +167,7 @@ def map_coordinates_bilinear(
     bot = v10 * (1.0 - fx) + v11 * fx
     val = top * (1.0 - fy) + bot * fy
 
-    inside = (y >= 0) & (y <= h - 1) & (x >= 0) & (x <= w - 1)
+    inside = (y >= 0) & (y <= n_y - 1) & (x >= 0) & (x <= n_x - 1)
     return jnp.where(inside, val, jnp.asarray(cval, img.dtype))
 
 
@@ -174,8 +184,8 @@ def resize_bilinear(img: jax.Array, out_h: int, out_w: int) -> jax.Array:
 
     The grid is a separable outer product, so the resample is two matrix
     products against static interpolation matrices with two nonzeros per
-    row — they run on the MXU (gather-based resampling is ~25x slower on
-    TPU). A two-term dot is order-independent in f32, so values match
+    row — they run as matmuls instead of gathers. A two-term dot is
+    order-independent in f32, so values match
     bilinear ``map_coordinates`` on the same grid exactly (all
     coordinates in-bounds). Applied block-banded (``_banded_left/right``)
     for outputs above ``_BAND_BLOCK``: the dropped matrix tails are exact
@@ -192,16 +202,17 @@ def resize_bilinear(img: jax.Array, out_h: int, out_w: int) -> jax.Array:
 def downsample_fused(
     img: jax.Array, out_h: int, out_w: int, sigma: float
 ) -> jax.Array:
-    """Gaussian smooth + linspace bilinear resample as two MXU matmuls.
+    """Gaussian smooth + linspace bilinear resample as two matmuls.
 
     Both transforms are linear per axis, so the whole pyramid
     downsampling step (reference python/lucas_kanade_pyramidal.py:44-59)
     collapses into one precomputed (out, in) matrix per axis:
     ``D = R @ G`` where G is the symmetric-boundary Gaussian operator
     and R the two-tap bilinear resampler. One pass, no intermediate
-    full-resolution smoothed image in HBM, and the reduction runs on
-    the MXU instead of 17-tap VPU shifts. Composed in f64 and applied
-    at HIGHEST precision: matches the sequential ``gaussian_filter`` +
+    full-resolution smoothed image in device memory, and the reduction
+    runs as a matmul instead of 17-tap shifts. Composed in f64 and
+    applied at HIGHEST precision (true f32, not TF32): matches the
+    sequential ``gaussian_filter`` +
     ``resize_bilinear`` path to f32 rounding (~1e-6 relative), which is
     well inside the verifier's regression gate; the parity-exact
     sequential path remains available for golden comparisons.
@@ -215,13 +226,12 @@ def downsample_fused(
 # composed operators are BANDED around the (scaled) diagonal — Gaussian
 # taps truncate to exact zeros at radius 4*sigma and the bilinear
 # resampler has two taps — so a dense (out, in) matmul burns
-# in_extent/band_width x more MXU FLOPs than the nonzeros need (~8x at
-# 4K for the sigma=2 downsample, ~500x for flow upsampling). Splitting
-# the OUTPUT into row blocks and slicing each block's exact nonzero
-# column range keeps the MXU but drops the zero tails (measured
-# numbers: benchmarks/r04/ 4K profile + DESIGN §4 r4 note). 256 keeps
-# every block matmul MXU-shaped (>=2 passes of 128) while bounding the
-# unrolled block count at 4K to <=9 per axis.
+# in_extent/band_width x more matmul FLOPs than the nonzeros need (~8x
+# at 4K for the sigma=2 downsample, ~500x for flow upsampling).
+# Splitting the OUTPUT into row blocks and slicing each block's exact
+# nonzero column range keeps the matmul but drops the zero tails. 256
+# keeps every block matmul large while bounding the unrolled block
+# count at 4K to <=9 per axis.
 _BAND_BLOCK = 256
 
 

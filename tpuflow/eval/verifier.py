@@ -1,7 +1,7 @@
 """Verification harness: run both LK modes over the 13-pattern suite,
 classify against thresholds, and gate on baseline regression.
 
-TPU-native re-creation of the reference verifier (reference:
+JAX re-creation of the reference verifier (reference:
 python/optical_flow_verifier.py:211-919): same pattern categories and
 Pass/Warning/Fail thresholds (verification_config.yaml:6-27), same
 test-region semantics (whole frame minus 10 px border for translation;
@@ -29,6 +29,7 @@ import numpy as np
 from tpuflow.core.config import PYRAMID_CONFIGS, PyramidConfig
 from tpuflow.eval.metrics import compute_all_metrics
 from tpuflow.eval import patterns as patterns_mod
+from tpuflow.flow.backend import BACKENDS, is_clamped
 
 REFERENCE_BASELINE = Path(__file__).parent / "data" / "reference_baseline.json"
 
@@ -137,7 +138,7 @@ def _make_runners(
     @jax.jit
     def single(prev, curr):
         return lucas_kanade_single_scale(
-            prev, curr, pyramid_config.window_size, backend=backend,
+            prev, curr, pyramid_config.window_size,
             gaussian_weights=gaussian_weights,
         )
 
@@ -292,18 +293,23 @@ def compare_against_baseline(
     optical_flow_verifier.py:637-719).
 
     Provenance guard: a baseline captured with one pyramid config or
-    backend must not silently gate a run of another (e.g. ``--backend
-    pallas`` against the jnp reference baseline, or ``narrow_vertical``
-    against the full-band pallas baseline) — mismatches fail the check
+    flow semantics must not silently gate a run of another (e.g. a fast
+    backend against the jnp reference baseline, or ``narrow_vertical``
+    against the full-band fast baseline) — mismatches fail the check
     outright instead of producing spurious metric flags or accidental
-    passes."""
+    passes. The fast backends (``xla``, ``pallas``) share one semantics,
+    so either gates against a baseline captured with the other."""
     if not baseline_path.exists():
         print(f"No baseline found at {baseline_path}; skipping regression check.")
         return True
     doc = json.loads(baseline_path.read_text())
     baseline = doc.get("patterns", {})
     base_backend = doc.get("backend")
-    if backend is not None and base_backend is not None and backend != base_backend:
+    if (
+        backend is not None
+        and base_backend is not None
+        and is_clamped(backend) != is_clamped(base_backend)
+    ):
         print(
             f"PROVENANCE MISMATCH: baseline {baseline_path.name} was "
             f"captured with backend={base_backend!r} but this run uses "
@@ -487,7 +493,7 @@ def main() -> None:
         help=f"named pyramid config (built-in: {', '.join(sorted(PYRAMID_CONFIGS))}; "
         "--config can add more)",
     )
-    parser.add_argument("--backend", type=str, default="jnp", choices=["jnp", "pallas"])
+    parser.add_argument("--backend", type=str, default="jnp", choices=BACKENDS)
     parser.add_argument(
         "--gaussian-weights", action="store_true",
         help="Gaussian window weighting for single-scale (the option the "

@@ -33,6 +33,7 @@ import numpy as np
 
 from tpuflow.eval import patterns as patterns_mod
 from tpuflow.eval.vo_metrics import trajectory_metrics
+from tpuflow.flow.backend import BACKENDS, is_clamped
 
 VO_BASELINE = Path(__file__).parent / "data" / "vo_baseline.json"
 
@@ -204,8 +205,14 @@ def render_sequence(
     width: int = WIDTH,
     height: int = HEIGHT,
     depth: float = PLANE_DEPTH,
+    base: Optional[np.ndarray] = None,
+    k: Optional[Tuple[float, float, float, float]] = None,
 ) -> List[np.ndarray]:
     """Render each camera's view of the textured plane Z = ``depth``.
+
+    ``base`` is camera 0's (height, width) view of the plane (default:
+    the texture asset resized); ``k`` the intrinsics (fx, fy, cx, cy)
+    (default: :func:`intrinsics`).
 
     Frame i is the base texture inverse-warped by H_{0->i}^{-1}: a pixel
     x_i in camera i images the plane point that camera 0 sees at
@@ -215,8 +222,10 @@ def render_sequence(
     """
     from scipy.ndimage import map_coordinates
 
-    base = patterns_mod.load_base_texture(width, height).astype(np.float32)
-    fx, fy, cx, cy = intrinsics()
+    if base is None:
+        base = patterns_mod.load_base_texture(width, height)
+    base = np.asarray(base, np.float32)
+    fx, fy, cx, cy = k or intrinsics()
     k_mat = np.array([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]])
     k_inv = np.linalg.inv(k_mat)
     n_vec = np.array([0.0, 0.0, 1.0])
@@ -360,18 +369,14 @@ def run_suite(
 # relative gate is therefore unenforceable on CPU; the CPU gate uses
 # this threshold as a breakage detector and ABS_BOUNDS as the primary
 # accuracy ruler (check_absolute_bounds, enforced on every
-# --compare-baseline run). The TPU fast-path baseline
-# (vo_pallas_baseline.json, tpu_fastpath_check.sh) keeps the tight 10%
-# gate — the physical chip is the same every run, so its numerics ARE
-# reproducible.
+# --compare-baseline run).
 CPU_CROSS_HOST_THRESHOLD = 60.0
 
 # Absolute trajectory-accuracy bounds: the host-stable primary gate.
 # Every sequence spans >= ~0.1 world units, so ATE-RMSE must stay well
 # under that for the pipeline to be "working" in any meaningful sense;
-# these bounds hold with huge margin on every platform measured
-# (CPU x2 hosts, TPU-jnp with HIGHEST-pinned GN, TPU-pallas) while the
-# relative gate wobbles with codegen. square_loop carries more interior
+# these bounds hold with huge margin on every platform measured while
+# the relative gate wobbles with codegen. square_loop carries more interior
 # drift than the straight sequences (chunk-fused trajectory); swing_imu
 # is scored METRIC (no scale gauge to absorb error) and its absolute
 # ATE is vision-limited on the planar scene (see SEQUENCE_MODES note).
@@ -380,28 +385,26 @@ ABS_ATE_DEFAULT = 0.03
 ABS_RPE_ROT_DEG = 1.0
 MIN_TRACK_COUNT = 100
 
-# Cross-PLATFORM (CPU baseline vs TPU-jnp run, or vice versa) relative
-# threshold. With the GN/BA/VI matmuls pinned to HIGHEST precision
-# (vo/_precision.py) the TPU-jnp trajectories track the CPU baseline
-# to 0.1-2.3% on the incremental sequences (measured round 4 on this
-# v5e host; before the pinning, dolly_z ate_rmse read +407% — an
-# unbounded failure no threshold could honestly cover). The CHUNKED
-# sequences (square_loop, swing_imu) still spread up to ~35% relative:
-# the dense-flow front end itself differs across platforms at the
-# sub-percent level (within its own 10% parity gate) and the chunk
-# anchoring composition amplifies it — chaotically, like the
-# cross-host CPU spread, while absolute scores stay excellent.
+# Cross-PLATFORM (CPU baseline vs accelerator run, or vice versa)
+# relative threshold. The GN/BA/VI matmuls are pinned to HIGHEST
+# precision (vo/_precision.py); without the pinning an accelerator's
+# reduced-precision matmuls made trajectories diverge without bound.
+# The CHUNKED sequences (square_loop, swing_imu) still spread widely
+# in relative terms: the dense-flow front end itself differs across
+# platforms at the sub-percent level (within its own 10% parity gate)
+# and the chunk anchoring composition amplifies it — chaotically, like
+# the cross-host CPU spread, while absolute scores stay excellent.
 CROSS_PLATFORM_THRESHOLD = 60.0
 
 # Per-metric absolute floors for cross-provenance (cross-host or
 # cross-platform) comparison: a change only flags if it exceeds the
 # floor absolutely AND the threshold relatively. Sized at ~1/4 of the
 # ABS bounds' health margins (trajectory spans are >= ~0.1 world
-# units; rot health bound is 1 deg): measured round-4 example that
-# motivates the rot floor — swing_imu rpe_rot 0.035 (CPU) vs 0.197 deg
-# (TPU-jnp), +463% relative on an absolutely-negligible 0.16 deg move
-# of a VI-refined rotation. Same-provenance comparison keeps the tight
-# 1e-4 dust floor.
+# units; rot health bound is 1 deg): the measured example that
+# motivates the rot floor is a swing_imu rpe_rot move of 0.035 to 0.197
+# deg between platforms, +463% relative on an absolutely-negligible
+# 0.16 deg move of a VI-refined rotation. Same-provenance comparison
+# keeps the tight 1e-4 dust floor.
 CROSS_METRIC_FLOORS = {
     "ate_rmse": 0.005,
     "rpe_trans": 0.005,
@@ -410,21 +413,17 @@ CROSS_METRIC_FLOORS = {
 
 
 def default_threshold(
-    backend: str, platform: str, baseline_path: Path = VO_BASELINE
+    platform: str, baseline_path: Path = VO_BASELINE
 ) -> tuple[float, dict | float]:
-    """(threshold, abs_floor) for (backend, actual platform, baseline).
+    """(threshold, abs_floor) for (actual platform, baseline).
 
-    - pallas baseline (TPU fast path): bit-stable on the physical chip
-      -> tight 10%, dust floor.
-    - jnp, same platform as the baseline: CPU_CROSS_HOST_THRESHOLD
-      (host-to-host XLA:CPU codegen spread; see its note) with the
+    - Same platform as the baseline: CPU_CROSS_HOST_THRESHOLD
+      (host-to-host codegen spread; see its note) with the
       cross-provenance metric floors.
-    - jnp, DIFFERENT platform than the baseline (the misfire mode round
-      3 shipped): CROSS_PLATFORM_THRESHOLD + metric floors, with
-      absolute bounds doing the real gating either way.
+    - DIFFERENT platform than the baseline: CROSS_PLATFORM_THRESHOLD +
+      metric floors, with absolute bounds doing the real gating either
+      way.
     """
-    if backend == "pallas":
-        return 10.0, 1e-4
     base_platform = None
     if baseline_path.exists():
         try:
@@ -500,15 +499,20 @@ def compare_against_baseline(
     ``platform``: the ACTUAL execution platform of this run
     (``jax.default_backend()``), checked against the platform recorded
     in the baseline. The jnp backend runs on whatever platform JAX
-    picked — on a TPU host that is the TPU, whose f32 numerics differ
-    from the CPU's — so the flag-level backend check alone cannot catch
-    cross-provenance comparison (measured round-3 failure mode)."""
+    picked — on an accelerator host that is the accelerator, whose f32
+    numerics differ from the CPU's — so the flag-level backend check
+    alone cannot catch cross-provenance comparison."""
     if not baseline_path.exists():
         print(f"No VO baseline at {baseline_path}; skipping regression check.")
         return True
     doc = json.loads(baseline_path.read_text())
     base_backend = doc.get("backend")
-    if backend is not None and base_backend is not None and backend != base_backend:
+    # The fast backends (xla, pallas) share one semantics.
+    if (
+        backend is not None
+        and base_backend is not None
+        and is_clamped(backend) != is_clamped(base_backend)
+    ):
         print(
             f"PROVENANCE MISMATCH: VO baseline captured with backend="
             f"{base_backend!r} but this run uses backend={backend!r}."
@@ -618,17 +622,16 @@ def main() -> None:
         "sequences with analytic pose ground truth"
     )
     parser.add_argument("--sequence", type=str, nargs="+", default=None)
-    parser.add_argument("--backend", type=str, default="jnp", choices=["jnp", "pallas"])
+    parser.add_argument("--backend", type=str, default="jnp", choices=BACKENDS)
     parser.add_argument("--frames", type=int, default=N_FRAMES)
     parser.add_argument("--ba-iterations", type=int, default=10)
     parser.add_argument("--compare-baseline", action="store_true")
     parser.add_argument("--update-baseline", action="store_true")
     parser.add_argument(
         "--regression-threshold", type=float, default=None,
-        help="percent gate vs the committed baseline; default 10 on the "
-        "pallas backend (bit-stable on the physical chip), "
-        "CPU_CROSS_HOST_THRESHOLD with per-metric absolute floors on "
-        "jnp (codegen varies by host CPU and platform — see "
+        help="percent gate vs the committed baseline; default "
+        "CPU_CROSS_HOST_THRESHOLD with per-metric absolute floors "
+        "(codegen varies by host CPU and platform — see "
         "default_threshold). Absolute accuracy bounds "
         "(check_absolute_bounds) are enforced regardless.",
     )
@@ -659,9 +662,7 @@ def main() -> None:
         bounds_ok = check_absolute_bounds(results)
         threshold = args.regression_threshold
         if threshold is None:
-            threshold, floor = default_threshold(
-                args.backend, platform, Path(args.baseline)
-            )
+            threshold, floor = default_threshold(platform, Path(args.baseline))
         else:
             floor = 1e-4
         ok = compare_against_baseline(

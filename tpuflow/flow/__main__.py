@@ -6,7 +6,7 @@ frame_00/01.bin, run single-scale, print statistics over the textured
 test region y[105:135] x[55:85], export ``flow_field_python.txt`` and a
 quiver plot) and the pyramidal wrapper main() in
 python/lucas_kanade_pyramidal.py. One CLI covers both modes plus the
-TPU fast path:
+fast path:
 
     python -m tpuflow.flow FRAME_DIR [--pyramidal] [--backend pallas]
         [--width W --height H] [--region x0 x1 y0 y1]
@@ -87,7 +87,7 @@ def _run_sequence(d, args) -> None:
         mode = f"pyramidal[{args.pyramid_config}]"
     else:
         fn = jax.jit(lambda p, c: lucas_kanade_single_scale(
-            p, c, args.window_size, backend=args.backend))
+            p, c, args.window_size))
         mode = "single-scale"
 
     n = 0
@@ -158,9 +158,10 @@ def main() -> None:
                         help="named config: default/shallow/deep/large_window")
     parser.add_argument("--window-size", type=int, default=5)
     parser.add_argument("--backend", type=str, default="jnp",
-                        choices=["jnp", "pallas", "rtl"],
-                        help="jnp = golden-parity float32; pallas = fused "
-                        "TPU kernels; rtl = S8.7 integer datapath "
+                        choices=["jnp", "xla", "pallas", "rtl"],
+                        help="jnp = golden-parity float32; xla / pallas = "
+                        "the saturating fast path (pallas: fused GPU LK "
+                        "kernel); rtl = S8.7 integer datapath "
                         "(single-scale only — the reference hardware's "
                         "numerics, the analog of run_sim.sh's "
                         "flow_field_rtl.txt output)")
@@ -246,7 +247,7 @@ def main() -> None:
     else:
         u, v = lucas_kanade_single_scale(
             jnp.asarray(f0), jnp.asarray(f1),
-            window_size=args.window_size, backend=args.backend,
+            window_size=args.window_size,
         )
         mode = "single-scale"
     u = np.asarray(u)

@@ -1,6 +1,6 @@
 """Pyramidal (coarse-to-fine) Lucas-Kanade dense flow.
 
-TPU-native equivalent of the reference's pyramidal path — the Python
+JAX equivalent of the reference's pyramidal path — the Python
 golden model (python/lucas_kanade_pyramidal.py:141-228) and the RTL
 pyramid_control_fsm sequence BUILD -> SOLVE_L0 -> UPSAMPLE -> WARP ->
 SOLVE -> ACCUM per level (rtl/unopt/pyramid_control_fsm.sv:59-152). The
@@ -15,7 +15,8 @@ import jax
 import jax.numpy as jnp
 
 from tpuflow.core.config import PyramidConfig
-from tpuflow.flow.single_scale import Backend, lucas_kanade_single_scale
+from tpuflow.flow.backend import Backend, is_clamped
+from tpuflow.flow.single_scale import lucas_kanade_single_scale
 from tpuflow.kernels import jnp_ref
 
 
@@ -26,96 +27,83 @@ def _refine_level(
     flow_v: jax.Array,
     cfg: PyramidConfig,
     backend: Backend,
-    rtl_clamp: bool = False,
-    finest: bool = False,
-) -> tuple[jax.Array, jax.Array]:
+) -> tuple[jax.Array, jax.Array, jax.Array]:
     """Iterative warp -> residual-LK -> accumulate at one pyramid level.
 
     Matches reference python/lucas_kanade_pyramidal.py:201-223: the
     residual is always accumulated, then the loop exits early once both
-    mean |du| and mean |dv| drop below the convergence threshold.
+    mean |du| and mean |dv| drop below the convergence threshold. The
+    fast backends first saturate the carried flow at the level's band
+    (PyramidConfig.max_disp / max_disp_v). Returns ``(u, v, n)`` with
+    ``n`` the number of iterations run.
     """
+    clamped = is_clamped(backend)
+    h, w = img_prev.shape
+    n_px = h * w
+
+    def clip(u, v):
+        if not clamped:
+            return u, v
+        return jnp_ref.clamp_flow(u, v, cfg.max_disp, cfg.max_disp_v_effective)
 
     def cond(state):
         _, _, i, converged = state
         return jnp.logical_and(i < cfg.iterations, jnp.logical_not(converged))
 
-    n_px = img_prev.shape[0] * img_prev.shape[1]
+    if backend == "pallas":
+        from tpuflow.kernels import pallas_lk
 
-    def body(state):
-        u, v, i, converged = state
-        if backend == "pallas":
-            # Fully fused iteration: the warp kernel clips the carried
-            # flow to the band in-kernel (RTL saturation analog,
-            # flow_solver.sv:134-144), and the refine kernel folds the
-            # clip + convergence-latched accumulate + |du| partial sums
-            # into the LK pass — zero XLA plane passes per iteration.
-            from tpuflow.kernels import pallas_lk, pallas_warp
+        # The kernel reads padded planes: pad the level's prev frame and
+        # carried flow once, not per iteration.
+        prev_p = pallas_lk.pad_frame(img_prev, cfg.window_size)
+        flow_u = pallas_lk.pad_flow(flow_u)
+        flow_v = pallas_lk.pad_flow(flow_v)
 
-            # Packed-gather selection by level: the finest level IS the
-            # raw frame, whose values are 0..255 integers for 8-bit
-            # sources (the config's documented input contract) — it can
-            # use the bit-exact packed_u8 corner-pair kernel. Coarse
-            # levels are blurred floats: u8-QUANTIZING them was measured
-            # and rejected (+23%/+33% u/v-MAE on translate_medium — the
-            # blurred levels' gradients don't survive half-gray
-            # rounding), but the r4 packed_u16 kernel's 1/256-step 8.8
-            # quantization is below their gradient scale and halves the
-            # gather count (suite impact gated at <10%, see
-            # docs/verification_results_pallas.md).
-            use_u8 = cfg.warp_packed_u8 and finest
-            warped = pallas_warp.warp_image_banded(
-                img_curr, u, v, max_disp=cfg.max_disp, clamp_flow=True,
-                max_disp_v=cfg.max_disp_v_effective,
-                packed_u8=use_u8,
-                packed_u16=cfg.warp_packed_u16 and not use_u8,
-            )
-            u, v, sdu, sdv = pallas_lk.lucas_kanade_refine(
-                img_prev,
-                warped,
-                u,
-                v,
-                converged,
-                window_size=cfg.window_size,
-                det_threshold=cfg.det_threshold,
-                max_disp=float(cfg.max_disp),
-                max_disp_v=float(cfg.max_disp_v_effective),
-                relaxed_order=cfg.relaxed_order,
-            )
+        def body(state):
+            u, v, i, converged = state
+            with jax.named_scope("warp"):
+                u_c, v_c = clip(u[:h, :w], v[:h, :w])
+                warped = pallas_lk.pad_frame(
+                    jnp_ref.warp_image(img_curr, u_c, v_c), cfg.window_size
+                )
+            with jax.named_scope("lk_refine"):
+                u, v, sdu, sdv = pallas_lk.refine(
+                    prev_p, warped, u, v, converged, height=h, width=w,
+                    window_size=cfg.window_size,
+                    det_threshold=cfg.det_threshold,
+                    max_disp=float(cfg.max_disp),
+                    max_disp_v=float(cfg.max_disp_v_effective),
+                )
             now_converged = jnp.logical_and(
                 sdu / n_px < cfg.convergence_threshold,
                 sdv / n_px < cfg.convergence_threshold,
             )
-            converged = jnp.logical_or(converged, now_converged)
-            return u, v, i + 1, converged
-        if rtl_clamp:
-            # RTL-style saturation (flow_solver.sv:134-144 analog);
-            # vertical band may be narrower (PyramidConfig.max_disp_v),
-            # matching the pallas fast path and the tiled path.
-            u = jnp.clip(u, -cfg.max_disp, cfg.max_disp)
-            v = jnp.clip(
-                v, -cfg.max_disp_v_effective, cfg.max_disp_v_effective
+            return u, v, i + 1, jnp.logical_or(converged, now_converged)
+
+    else:
+
+        def body(state):
+            u, v, i, converged = state
+            with jax.named_scope("warp"):
+                u, v = clip(u, v)
+                warped = jnp_ref.warp_image(img_curr, u, v)
+            with jax.named_scope("lk_refine"):
+                du, dv = lucas_kanade_single_scale(
+                    img_prev, warped, cfg.window_size,
+                    det_threshold=cfg.det_threshold,
+                )
+            # Latch on convergence: under vmap the while_loop runs until
+            # every batch element converges, so already-converged
+            # elements must stop accumulating to keep per-frame semantics
+            # (the reference's break, python/lucas_kanade_pyramidal.py:
+            # 221-223).
+            u = jnp.where(converged, u, u + du)
+            v = jnp.where(converged, v, v + dv)
+            now_converged = jnp.logical_and(
+                jnp.mean(jnp.abs(du)) < cfg.convergence_threshold,
+                jnp.mean(jnp.abs(dv)) < cfg.convergence_threshold,
             )
-        warped = jnp_ref.warp_image(img_curr, u, v)
-        du, dv = lucas_kanade_single_scale(
-            img_prev,
-            warped,
-            cfg.window_size,
-            det_threshold=cfg.det_threshold,
-            backend=backend,
-        )
-        # Latch on convergence: under vmap the while_loop runs until every
-        # batch element converges, so already-converged elements must stop
-        # accumulating to keep per-frame semantics (the reference's break,
-        # python/lucas_kanade_pyramidal.py:221-223).
-        u = jnp.where(converged, u, u + du)
-        v = jnp.where(converged, v, v + dv)
-        now_converged = jnp.logical_and(
-            jnp.mean(jnp.abs(du)) < cfg.convergence_threshold,
-            jnp.mean(jnp.abs(dv)) < cfg.convergence_threshold,
-        )
-        converged = jnp.logical_or(converged, now_converged)
-        return u, v, i + 1, converged
+            return u, v, i + 1, jnp.logical_or(converged, now_converged)
 
     # Tie the carry's device-varying annotation to the image data: under
     # shard_map, all-gathered frames are marked varying while a fresh
@@ -129,8 +117,8 @@ def _refine_level(
         jnp.asarray(0, jnp.int32),
         jnp.asarray(False) | (tie > 1.0),
     )
-    u, v, _, _ = jax.lax.while_loop(cond, body, init)
-    return u, v
+    u, v, n, _ = jax.lax.while_loop(cond, body, init)
+    return u[:h, :w], v[:h, :w], n
 
 
 def _select_band_index(
@@ -173,15 +161,13 @@ def _refine_level_adaptive(
     flow_v: jax.Array,
     cfg: PyramidConfig,
     backend: Backend,
-    rtl_clamp: bool = False,
-    finest: bool = False,
-) -> tuple[jax.Array, jax.Array]:
+) -> tuple[jax.Array, jax.Array, jax.Array]:
     """``_refine_level`` with the vertical band picked at the level
-    boundary: one precompiled variant per candidate band, dispatched by
-    ``lax.switch`` on the coarse solve's interior |v| statistics. On TPU
-    only the selected branch executes (outside vmap), so benign streams
-    pay the narrow band's warp cost while vertical motion keeps the full
-    band — the adaptive form of the static ``narrow_vertical`` trade.
+    boundary: one compiled variant per candidate band, dispatched by
+    ``lax.switch`` on the coarse solve's interior |v| statistics. Outside
+    vmap only the selected branch executes, so benign streams run at the
+    narrow band while vertical motion keeps the full band — the adaptive
+    form of the static ``narrow_vertical`` trade.
     """
     import dataclasses
 
@@ -193,7 +179,7 @@ def _refine_level_adaptive(
     def variant(b: int):
         vcfg = dataclasses.replace(cfg, max_disp_v=b, adaptive_v_bands=None)
         return lambda u, v: _refine_level(
-            img_prev, img_curr, u, v, vcfg, backend, rtl_clamp, finest
+            img_prev, img_curr, u, v, vcfg, backend
         )
 
     return jax.lax.switch(idx, [variant(b) for b in bands], flow_u, flow_v)
@@ -208,44 +194,39 @@ def lucas_kanade_pyramidal(
     *,
     config: PyramidConfig | None = None,
     backend: Backend = "jnp",
-    rtl_clamp: bool = False,
     return_levels: bool = False,
 ):
-    """Coarse-to-fine dense flow, reference-parity semantics.
+    """Coarse-to-fine dense flow.
 
     Matches reference python/lucas_kanade_pyramidal.py:141-228: Gaussian
     pyramids (sigma = 1/scale smoothing + linspace bilinear resample),
     zero flow at the coarsest level, per level upsample-and-scale then
     ``num_iterations`` x (warp, residual LK, accumulate) with early exit.
+    ``backend="jnp"`` (the default) keeps the golden model's semantics;
+    the fast backends (``tpuflow.flow.backend``) add per-level flow
+    saturation and the config's adaptive band ladder.
 
     ``return_levels=True`` additionally returns the per-level refined
     flow fields ``[(u_0, v_0), ...]`` (coarsest first) as pure outputs —
-    the TPU-native form of the reference's per-level diagnostic
+    the pure-function form of the reference's per-level diagnostic
     snapshots (python/lucas_kanade_pyramidal.py:226, 313-352), which
     side-effect PNG writes from inside the solve loop; here the traced
     function stays pure and ``tpuflow.eval.visualize
     .save_pyramid_levels`` renders them.
-
-    **8-bit input contract** (configs with ``warp_packed_u8``, e.g.
-    ``production``): frames must carry integer values in [0, 255] —
-    i.e. come from an 8-bit source in native gray levels. A caller
-    feeding NORMALIZED [0, 1] floats under such a config gets a
-    silently floor-truncated (near-all-zero) finest-level warp and
-    garbage flow, because the packed corner-pair gather packs whole
-    gray levels into bytes. Scale such inputs by 255 (and round) or
-    select a config without ``warp_packed_u8``. ``warp_packed_u16``
-    configs only require values in [0, 255] (any float is fine;
-    quantization step 1/256).
     """
     cfg = config or PyramidConfig(
         levels=num_levels, window_size=window_size, iterations=num_iterations
     )
 
-    pyr_prev = jnp_ref.build_gaussian_pyramid(frame_prev, cfg.levels, cfg.scale_factor)
-    pyr_curr = jnp_ref.build_gaussian_pyramid(frame_curr, cfg.levels, cfg.scale_factor)
+    with jax.named_scope("pyramid"):
+        pyr_prev = jnp_ref.build_gaussian_pyramid(
+            frame_prev, cfg.levels, cfg.scale_factor
+        )
+        pyr_curr = jnp_ref.build_gaussian_pyramid(
+            frame_curr, cfg.levels, cfg.scale_factor
+        )
     return lucas_kanade_pyramidal_from_pyramids(
-        pyr_prev, pyr_curr, cfg, backend=backend, rtl_clamp=rtl_clamp,
-        return_levels=return_levels,
+        pyr_prev, pyr_curr, cfg, backend=backend, return_levels=return_levels,
     )
 
 
@@ -255,8 +236,8 @@ def lucas_kanade_pyramidal_from_pyramids(
     cfg: PyramidConfig,
     *,
     backend: Backend = "jnp",
-    rtl_clamp: bool = False,
     return_levels: bool = False,
+    return_iterations: bool = False,
 ):
     """Coarse-to-fine refinement on prebuilt Gaussian pyramids.
 
@@ -266,43 +247,50 @@ def lucas_kanade_pyramidal_from_pyramids(
     (``lucas_kanade_pyramidal_step``) instead of rebuilding it, the
     serving-path analog of the RTL keeping both frame pyramids resident
     in BRAM across the solve (optical_flow_top_pyramidal.sv:189-293).
+
+    ``return_iterations=True`` appends an int32 ``(levels,)`` array of
+    the refinement iterations each level ran (coarsest first): the
+    data-dependent early exit can flip on last-bit differences, so
+    comparisons between devices report it beside the flow.
     """
     h0, w0 = pyr_prev[0].shape
     flow_u = jnp.zeros((h0, w0), pyr_prev[0].dtype)
     flow_v = jnp.zeros((h0, w0), pyr_prev[0].dtype)
 
     # Adaptive vertical band applies only where the band exists at all
-    # (the clamped fast/rtl paths; the jnp parity path never clamps) and
+    # (the fast backends; the jnp parity path never clamps) and
     # only at levels with a coarse predecessor to derive it from — the
     # coarsest level always refines at the full band (it is tiny and its
     # warp is cheap).
-    adaptive = cfg.adaptive_v_bands is not None and (
-        backend == "pallas" or rtl_clamp
-    )
+    adaptive = cfg.adaptive_v_bands is not None and is_clamped(backend)
 
     levels = []
+    iterations = []
     for level in range(cfg.levels):
         img_prev = pyr_prev[level]
         img_curr = pyr_curr[level]
-        if level > 0:
-            flow_u, flow_v = jnp_ref.upsample_flow(flow_u, flow_v, img_prev.shape)
-        finest = level == cfg.levels - 1
-        if adaptive and level > 0:
-            flow_u, flow_v = _refine_level_adaptive(
-                img_prev, img_curr, flow_u, flow_v, cfg, backend, rtl_clamp,
-                finest,
+        with jax.named_scope(f"level{level}"):
+            if level > 0:
+                with jax.named_scope("upsample"):
+                    flow_u, flow_v = jnp_ref.upsample_flow(
+                        flow_u, flow_v, img_prev.shape
+                    )
+            refine = (
+                _refine_level_adaptive if adaptive and level > 0
+                else _refine_level
             )
-        else:
-            flow_u, flow_v = _refine_level(
-                img_prev, img_curr, flow_u, flow_v, cfg, backend, rtl_clamp,
-                finest,
+            flow_u, flow_v, n = refine(
+                img_prev, img_curr, flow_u, flow_v, cfg, backend
             )
-        if return_levels:
-            levels.append((flow_u, flow_v))
+        levels.append((flow_u, flow_v))
+        iterations.append(n)
 
+    out = (flow_u, flow_v)
     if return_levels:
-        return flow_u, flow_v, levels
-    return flow_u, flow_v
+        out += (levels,)
+    if return_iterations:
+        out += (jnp.stack(iterations),)
+    return out
 
 
 def lucas_kanade_pyramidal_step(
@@ -311,7 +299,7 @@ def lucas_kanade_pyramidal_step(
     cfg: PyramidConfig,
     *,
     backend: Backend = "jnp",
-    rtl_clamp: bool = False,
+    return_iterations: bool = False,
 ):
     """One streaming flow step: ``(pyr_prev, frame) -> (u, v, pyr_curr)``.
 
@@ -320,12 +308,16 @@ def lucas_kanade_pyramidal_step(
     staying bit-identical to per-pair ``lucas_kanade_pyramidal`` (the
     pyramid of a frame does not depend on which pair it appears in).
     Seed the carry with ``jnp_ref.build_gaussian_pyramid(first_frame,
-    cfg.levels, cfg.scale_factor)``.
+    cfg.levels, cfg.scale_factor)``. ``return_iterations=True`` adds
+    the per-level iteration counts before the carry (see
+    ``lucas_kanade_pyramidal_from_pyramids``).
     """
-    pyr_curr = jnp_ref.build_gaussian_pyramid(
-        frame_curr, cfg.levels, cfg.scale_factor
+    with jax.named_scope("pyramid"):
+        pyr_curr = jnp_ref.build_gaussian_pyramid(
+            frame_curr, cfg.levels, cfg.scale_factor
+        )
+    out = lucas_kanade_pyramidal_from_pyramids(
+        pyr_prev, pyr_curr, cfg, backend=backend,
+        return_iterations=return_iterations,
     )
-    u, v = lucas_kanade_pyramidal_from_pyramids(
-        pyr_prev, pyr_curr, cfg, backend=backend, rtl_clamp=rtl_clamp
-    )
-    return u, v, pyr_curr
+    return (*out, pyr_curr)

@@ -1,22 +1,17 @@
 """Single-scale Lucas-Kanade dense flow.
 
-TPU-native equivalent of the reference's single-scale path — both the
-Python golden model (python/lucas_kanade_core.py:48-70) and the RTL
-streaming pipeline frame_buffer -> gradient_compute -> window_accumulator
--> flow_solver (rtl/unopt/optical_flow_top.sv:16-160). On TPU the whole
-pipeline is one fused pass: either XLA-fused jnp ops (``backend="jnp"``)
-or a single VMEM-resident Pallas kernel (``backend="pallas"``).
+JAX equivalent of the reference's single-scale path — both the Python
+golden model (python/lucas_kanade_core.py:48-70) and the RTL streaming
+pipeline frame_buffer -> gradient_compute -> window_accumulator ->
+flow_solver (rtl/unopt/optical_flow_top.sv:16-160), as XLA-fused jnp
+ops. Single-scale is off the serving path, so it has one implementation.
 """
 
 from __future__ import annotations
 
-from typing import Literal
-
 import jax
 
 from tpuflow.kernels import jnp_ref
-
-Backend = Literal["jnp", "pallas"]
 
 
 def lucas_kanade_single_scale(
@@ -26,9 +21,7 @@ def lucas_kanade_single_scale(
     *,
     det_threshold: float = 1e-4,
     gaussian_weights: bool = False,
-    backend: Backend = "jnp",
     return_confidence: bool = False,
-    relaxed_order: bool = False,
 ):
     """Dense (u, v) flow between two grayscale float32 frames.
 
@@ -39,25 +32,9 @@ def lucas_kanade_single_scale(
 
     ``return_confidence=True`` adds a per-pixel |det| plane (structure-
     tensor conditioning — high on texture, zero on the border and flat
-    regions), identical across backends to f32 rounding; useful for
-    track weighting and validity masking downstream.
-
-    ``relaxed_order=True`` (pallas only; ignored by the jnp golden
-    path) reassociates the window sums into shift trees — faster, not
-    bit-parity (PyramidConfig.relaxed_order).
+    regions); useful for track weighting and validity masking
+    downstream.
     """
-    if backend == "pallas":
-        from tpuflow.kernels import pallas_lk
-
-        return pallas_lk.lucas_kanade_fused(
-            frame_prev,
-            frame_curr,
-            window_size=window_size,
-            det_threshold=det_threshold,
-            gaussian_weights=gaussian_weights,
-            return_confidence=return_confidence,
-            relaxed_order=relaxed_order,
-        )
     ix, iy, it = jnp_ref.compute_gradients(frame_prev, frame_curr)
     return jnp_ref.lucas_kanade_from_gradients(
         ix,

@@ -1,8 +1,8 @@
 """High-level frame streaming: native prefetcher -> device arrays.
 
 The host input pipeline (SURVEY.md §2.6 "host-device streaming" row):
-a background C++ thread reads and widens frames while the TPU computes
-the previous pair, so HBM transfers overlap disk IO.
+a background C++ thread reads and widens frames while the device
+computes the previous pair, so host-to-device transfers overlap disk IO.
 """
 
 from __future__ import annotations
@@ -75,9 +75,8 @@ def prefetch_to_device(frames, lookahead: int = 2):
     ``jax.device_put`` is asynchronous: it *initiates* the H2D copy and
     returns immediately, so holding a small deque of in-flight transfers
     overlaps each upload with the compute consuming the previous frames —
-    the host-side half of the double buffering the kernels already do
-    HBM->VMEM (pallas_lk._dma_slabs), and the TPU analog of the
-    reference's frame buffer streaming pixels while the pipeline computes
+    the analog of the reference's frame buffer streaming pixels while
+    the pipeline computes
     (rtl/common/frame_buffer_simple.sv:60-94). Each frame is uploaded
     exactly once (the naive per-pair ``jnp.asarray(prev), jnp.asarray
     (curr)`` uploads every frame twice)."""

@@ -111,6 +111,18 @@ def warp_image(image: jax.Array, flow_u: jax.Array, flow_v: jax.Array) -> jax.Ar
     return ops.map_coordinates_bilinear(image, yy + flow_v, xx + flow_u, cval=0.0)
 
 
+def clamp_flow(
+    flow_u: jax.Array, flow_v: jax.Array, max_disp: float, max_disp_v: float
+) -> tuple[jax.Array, jax.Array]:
+    """Saturate flow at +-max_disp (vertically +-max_disp_v): the fast
+    path's analog of the RTL solver clamp (rtl/unopt/flow_solver.sv:
+    134-144). The golden model never clamps."""
+    return (
+        jnp.clip(flow_u, -max_disp, max_disp),
+        jnp.clip(flow_v, -max_disp_v, max_disp_v),
+    )
+
+
 def upsample_flow(
     flow_u: jax.Array, flow_v: jax.Array, target_shape: tuple[int, int]
 ) -> tuple[jax.Array, jax.Array]:
@@ -135,7 +147,7 @@ def downsample_image(image: jax.Array, scale_factor: float = 0.5) -> jax.Array:
     Twin of reference python/lucas_kanade_pyramidal.py:44-59: sigma =
     1/scale_factor, new dims = int(dim * scale_factor), resample on the
     linspace grid (NOT area averaging, NOT jax.image.resize defaults).
-    Runs as the composed per-axis operator on the MXU
+    Runs as the composed per-axis operator, one matmul per axis
     (ops.downsample_fused) — same linear map, f32-rounding-equivalent to
     smoothing then resampling sequentially.
     """

@@ -1,750 +1,299 @@
-"""Fused single-scale Lucas-Kanade Pallas TPU kernel.
+"""Fused Lucas-Kanade refinement step: Pallas through Triton.
 
-The headline kernel: the reference RTL's streaming pipeline
-gradient_compute -> window_accumulator -> flow_solver
-(rtl/unopt/gradient_compute.sv, window_accumulator.sv, flow_solver.sv —
-two line-buffer stages, 125 DSP products/cycle, and a combinational
-divider) re-designed as ONE VMEM-resident pass per row-slab:
+One refinement iteration of the coarse-to-fine solve (reference
+python/lucas_kanade_pyramidal.py:201-223) minus the warp:
 
-    HBM reads:  two frames, once each (plus an 8-row halo per slab)
-    VMEM:       averaged frame -> Sobel gradients -> 5 gradient-product
-                planes -> separable 5x5 window sums -> Cramer solve
-    HBM writes: (u, v), once
+    average -> Sobel -> It -> five gradient products -> window sums
+    -> Cramer solve -> interior mask -> clip / latch / accumulate
 
-The RTL's line buffers become a double-buffered slab pipeline (grid
-steps run sequentially per core with persistent scratch, so each step
-prefetches the next slab while computing the current one); its DSP
-array becomes VPU elementwise math; its BRAM port arbitration disappears
-(no shared-port hazards in VMEM). Numerics match tpuflow.kernels.jnp_ref
-in f32 (equivalence-tested in tests/test_pallas_kernels.py).
+plus the |du|, |dv| partial sums of the early-exit test. Left to XLA,
+that chain materialises gradient and product planes between fusions;
+here each program keeps it in registers, reads the two frames and the
+carried flow once, and writes only the new flow and one partial-sum
+vector.
 
-Batching: the kernel is natively batched over a flattened
-(batch * row_tiles) grid, and the public entry registers a
-``jax.custom_batching.custom_vmap`` rule, so ``vmap`` over frame
-streams (BASELINE.json config 4, "batched streams") maps onto the
-batched grid instead of failing on the manual-DMA input specs.
+Each program owns a (block_rows, block_cols) output block and walks its
+rows top to bottom, like the RTL's line buffers
+(rtl/unopt/window_accumulator.sv): per step it loads one new padded row
+of both frames at ``window + 2`` column offsets, carries the two
+previous averaged rows and the window's running vertical sums in
+registers, and emits one output row. Blocks run in no order, so nothing
+carries across the grid; XLA sums the per-block partials.
 
-Roofline: ~190 f32 FLOPs/pixel against 16 B/pixel of HBM traffic
-(2 frame reads + 2 flow writes) => arithmetic intensity ~12 FLOP/B,
-HBM-bound on v5e (~819 GB/s).
+Numerics follow ``jnp_ref``: the same Sobel taps in the same order, the
+same Cramer solve and det gate. The window sums add the same terms with
+rows and columns swapped (each row's horizontal sum first, then the
+vertical sum of those), so results agree with ``jnp_ref`` to float32
+rounding, not bit for bit.
 
-Geometry (all static):
-    APRON = 4 rows/cols per side = Sobel halo (1) + window halo (2) + 1
-    alignment spare, so every DMA slab is a multiple of 8 sublanes.
-    padded P = zeropad3(symmpad1(frame)), extended to gridded height;
-    P row p == image row p - APRON.
+Inputs are padded once by :func:`pad_frame` / :func:`pad_flow` so that
+every load is in bounds (the symmetric ring the reference's
+``convolve2d(boundary="symm")`` needs, zeros beyond).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-APRON = 4
+# Output blocks, largest first. The row loop is latency-bound, so a
+# level takes the largest block that still gives about eight programs
+# per SM of a 132-SM H100; smaller levels fall back to the smallest.
+# One warp per program, a 3-stage load pipeline and two rows per loop
+# step were fastest at every level width from 480 to 3840 in a sweep of
+# block shape, warps, stages and unrolling on an H100 (PERF.md).
+_BLOCKS = ((32, 128), (16, 128), (16, 64), (8, 128), (8, 64))
+_MIN_PROGRAMS = 1000
+NUM_WARPS = 1
+NUM_STAGES = 3
+UNROLL = 2
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _dma_slabs(prev_hbm, curr_hbm, bufs, sems, *, n_tiles, tile_rows):
-    """Double-buffered slab pipeline over the flattened (batch, tile)
-    grid: prefetch the next step's slabs while computing this one's.
-    Returns the (prev, curr) slabs for the current step."""
-    s = pl.program_id(0)
-    n = pl.num_programs(0)
-    slab_h = tile_rows + 2 * APRON
-    slot = jax.lax.rem(s, 2)
-    nslot = jax.lax.rem(s + 1, 2)
-
-    def copies(step, sl):
-        bb = step // n_tiles
-        r = (step % n_tiles) * tile_rows
-        return (
-            pltpu.make_async_copy(
-                prev_hbm.at[bb, pl.ds(r, slab_h), :], bufs.at[0, sl],
-                sems.at[0, sl],
-            ),
-            pltpu.make_async_copy(
-                curr_hbm.at[bb, pl.ds(r, slab_h), :], bufs.at[1, sl],
-                sems.at[1, sl],
-            ),
-        )
-
-    @pl.when(s == 0)
-    def _():
-        for cp in copies(s, slot):
-            cp.start()
-
-    @pl.when(s + 1 < n)
-    def _():
-        for cp in copies(s + 1, nslot):
-            cp.start()
-
-    for cp in copies(s, slot):
-        cp.wait()
-
-    return bufs[0, slot], bufs[1, slot]
+def _geometry(h: int, w: int) -> tuple[int, int]:
+    """(block_rows, block_cols) for an (h, w) level."""
+    for rows, cols in _BLOCKS:
+        if _round_up(h, rows) // rows * (_round_up(w, cols) // cols) >= _MIN_PROGRAMS:
+            return rows, cols
+    return _BLOCKS[-1]
 
 
-def _sliding_sum_tree(a, w: int, out_rows: int, out_cols: int):
-    """Sliding w-tap window sum over both axes by pairwise doubling.
+def _offset(window: int) -> int:
+    """Pad rows/cols before image row/col 0: Sobel (1) + window half."""
+    return window // 2 + 1
 
-    The parity-exact ``wsum`` adds taps in the reference's sequential
-    order: w-1 adds and w-1 shifted views per axis. Doubling reuses
-    partial runs — run2 = a + shift(a,1), run4 = run2 + shift(run2,2),
-    ... then composes w from the binary decomposition — so a 5-tap sum
-    costs 3 adds / 3 shifted views per axis instead of 4 (7-tap: 4 vs
-    6). Reassociation changes f32 rounding, so this lives behind the
-    ``relaxed_order`` flag with its own regression baseline; the RTL
-    itself sums in adder *trees*, not sequentially
-    (rtl/unopt/window_accumulator.sv:150-167) — it is the Python golden
-    model whose order is sequential.
+
+def flow_shape(h: int, w: int) -> tuple[int, int]:
+    """Shape of a flow plane padded to whole output blocks."""
+    block_rows, block_cols = _geometry(h, w)
+    return _round_up(h, block_rows), _round_up(w, block_cols)
+
+
+def pad_frame(frame: jax.Array, window: int) -> jax.Array:
+    """(H, W) frame -> the padded plane the kernel loads from.
+
+    One symmetric ring (the reference's Sobel boundary) then zeros, out
+    to whole blocks plus the window's apron on every side.
     """
-
-    def axis_sum(x, axis: int, out_len: int):
-        full = x.shape[axis]
-
-        def sl(arr, off: int, ln: int):
-            starts = [0, 0]
-            starts[axis] = off
-            limits = list(arr.shape)
-            limits[axis] = off + ln
-            return jax.lax.slice(arr, tuple(starts), tuple(limits))
-
-        runs = {1: x}
-        c = 1
-        while c * 2 <= w:
-            r = runs[c]
-            ln = full - 2 * c + 1
-            runs[2 * c] = sl(r, 0, ln) + sl(r, c, ln)
-            c *= 2
-        out = None
-        off, rem = 0, w
-        for size in sorted(runs, reverse=True):
-            while rem >= size:
-                piece = sl(runs[size], off, out_len)
-                out = piece if out is None else out + piece
-                off += size
-                rem -= size
-        return out
-
-    return axis_sum(axis_sum(a, 0, out_rows), 1, out_cols)
+    h, w = frame.shape
+    hq, wq = flow_shape(h, w)
+    off = _offset(window)
+    f = jnp.pad(frame, 1, mode="symmetric")
+    return jnp.pad(f, ((off - 1, hq - h + off - 1), (off - 1, wq - w + off - 1)))
 
 
-def _wsum_mxu(a, window: int, out_rows: int, out_cols: int):
-    """Window sums as banded MXU matmuls (VERDICT r4 item 4a ablation).
-
-    ``ops._banded_left/right`` proved banded-MXU beats VPU taps 2-4x for
-    the resample operators; this tries the same trick on the LK window
-    sums — the kernel's dominant misaligned-op cost (the shifted views
-    in ``_sliding_sum_tree``/the sequential wsum). Vertical pass: one
-    dense (out_rows, out_rows + w - 1) banded-ones matmul. Horizontal:
-    the same (128 + w - 1, 128) banded block for every 128-lane output
-    block, unrolled (the band never crosses more than one extra vreg).
-    Zero entries contribute exact +0.0 terms, so values equal the plain
-    window sum up to contraction order — relaxed-order semantics, like
-    the shift tree it would replace. Measurement-only: reachable via
-    ``window_mxu`` from :func:`lucas_kanade_fused`; promoted to a config
-    only if it beats the shift tree on device (see DESIGN §2 ablation
-    table for the verdict)."""
-    import numpy as np
-
-    gh, gw = a.shape
-    wv = np.zeros((out_rows, gh), np.float32)
-    for d in range(window):
-        wv[np.arange(out_rows), np.arange(out_rows) + d] = 1.0
-    rows = jax.lax.dot(
-        jnp.asarray(wv), a, precision=jax.lax.Precision.HIGHEST
-    )
-    blocks = []
-    wh_full = None
-    for c0 in range(0, out_cols, 128):
-        bw = min(128, out_cols - c0)
-        if bw == 128:
-            if wh_full is None:
-                m = np.zeros((128 + window - 1, 128), np.float32)
-                for j in range(128):
-                    m[j : j + window, j] = 1.0
-                wh_full = jnp.asarray(m)
-            wh = wh_full
-        else:
-            m = np.zeros((bw + window - 1, bw), np.float32)
-            for j in range(bw):
-                m[j : j + window, j] = 1.0
-            wh = jnp.asarray(m)
-        seg = jax.lax.slice(
-            rows, (0, c0), (out_rows, c0 + bw + window - 1)
-        )
-        blocks.append(
-            jax.lax.dot(seg, wh, precision=jax.lax.Precision.HIGHEST)
-        )
-    return blocks[0] if len(blocks) == 1 else jnp.concatenate(blocks, axis=1)
+def pad_flow(flow: jax.Array) -> jax.Array:
+    """(H, W) flow -> zero-padded to whole output blocks."""
+    h, w = flow.shape
+    hq, wq = flow_shape(h, w)
+    return jnp.pad(flow, ((0, hq - h), (0, wq - w)))
 
 
-def _lk_tile(p, c, *, n_tiles: int, tile_rows: int, height: int,
-             width: int, window: int, det_threshold: float,
-             taps: tuple[float, ...] | None = None,
-             return_det: bool = False, relaxed_order: bool = False,
-             window_mxu: bool = False):
-    """Core LK math on one (slab_h, wp) slab pair: gradients ->
-    structure tensor -> Cramer solve -> interior-masked (u, v) tile.
-
-    ``taps``: optional per-tap 1-D window weights (the Gaussian window
-    option, reference README.md:126-129 / core/ops.gaussian_window_kernel
-    — separable, so weighted sums keep the same two-pass structure);
-    None = the reference code's uniform window."""
-    avg = (p + c) * 0.5
-
-    # Sobel on the averaged frame (true convolution == correlation with the
-    # flipped kernel; reference python/lucas_kanade_core.py:31-40).
-    # Gradient region covers image rows [r0-2, r0+TH+2) -> slab rows
-    # [2, TH+6); same for columns -> (TH+4, W+4).
+def _refine_kernel(prev_ref, warp_ref, u_ref, v_ref, conv_ref,
+                   uo_ref, vo_ref, sdu_ref, sdv_ref, *,
+                   height: int, width: int, window: int,
+                   det_threshold: float, max_disp: float, max_disp_v: float,
+                   block_rows: int, block_cols: int):
     half = window // 2
-    gh = tile_rows + 2 * half
-    gw = width + 2 * half
-    base = APRON - half  # >= 1 for window <= 7
+    n_off = window + 2  # averaged-frame columns c-half-1 .. c+half+1
+    r0 = pl.program_id(0) * block_rows
+    c0 = pl.program_id(1) * block_cols
+    cols = c0 + jax.lax.broadcasted_iota(jnp.int32, (block_cols,), 0)
+    col_in = (cols >= half) & (cols < width - half)
+    frozen = conv_ref[0] > 0
 
-    if relaxed_order:
-        # Separable Sobel: Sx = [1,2,1]^T (x) [1,0,-1], Sy = its
-        # transpose, factored into a vertical pass then horizontal
-        # shifts. Same terms as the direct form (reassociated — hence
-        # relaxed-order only), but ZERO diagonal views: the direct form
-        # reads 8 two-axis-misaligned slices, the costliest kind
-        # (scripts/shift_ablation.py: misaligned slice-adds measure
-        # 3-7x an aligned add, diagonal worst), vs 3 row-shifted + 5
-        # col-shifted views here.
-        def shv(dy):  # vertical-shifted view, 1 col wider each side
-            return jax.lax.slice(
-                avg, (base + dy, base - 1), (base + dy + gh, base + 1 + gw)
+    def load_row(t):
+        """Averaged frame at n_off column offsets and It at the window's
+        2*half+1 offsets, for image row t (padded row t + offset)."""
+        pr = t + _offset(window)
+        p = [prev_ref[pr, pl.ds(c0 + k, block_cols)] for k in range(n_off)]
+        c = [warp_ref[pr, pl.ds(c0 + k, block_cols)] for k in range(n_off)]
+        avg = [(pk + ck) / 2.0 for pk, ck in zip(p, c)]
+        it = [p[k] - c[k] for k in range(1, n_off - 1)]
+        return avg, it
+
+    def row_sums(a_m, a_0, a_p, it):
+        """Horizontal window sums of the five products on one gradient
+        row, from averaged rows above/at/below it (jnp_ref's Sobel: the
+        flipped 3x3 taps added row by row)."""
+        sums = None
+        for j in range(window):
+            k = j + 1
+            ix = (0.125 * a_m[k - 1] + -0.125 * a_m[k + 1]
+                  + 0.25 * a_0[k - 1] + -0.25 * a_0[k + 1]
+                  + 0.125 * a_p[k - 1] + -0.125 * a_p[k + 1])
+            iy = (0.125 * a_m[k - 1] + 0.25 * a_m[k] + 0.125 * a_m[k + 1]
+                  + -0.125 * a_p[k - 1] + -0.25 * a_p[k] + -0.125 * a_p[k + 1])
+            t = it[j]
+            prods = (ix * ix, iy * iy, ix * iy, ix * t, iy * t)
+            sums = prods if sums is None else tuple(
+                s + q for s, q in zip(sums, prods)
             )
+        return sums
 
-        sv = shv(-1) + 2.0 * shv(0) + shv(1)   # [1,2,1] vertical smooth
-        dv = shv(-1) - shv(1)                   # [1,0,-1] vertical diff
-
-        def shc(m, dx):  # horizontal shift of a (gh, gw+2) intermediate
-            return jax.lax.slice(m, (0, 1 + dx), (gh, 1 + dx + gw))
-
-        ix = (shc(sv, -1) - shc(sv, 1)) * 0.125
-        iy = (shc(dv, -1) + 2.0 * shc(dv, 0) + shc(dv, 1)) * 0.125
-    else:
-        def sh(dy, dx):  # shifted slab view over the gradient region
-            return jax.lax.slice(
-                avg, (base + dy, base + dx), (base + dy + gh, base + dx + gw)
+    def step(g, carry, emit: bool):
+        """Gradient row g enters the window; emits output row g - half."""
+        a_m, a_0, it_0, parts, acc_u, acc_v = carry
+        a_p, it_p = load_row(g + 1)
+        h_new = row_sums(a_m, a_0, a_p, it_0)
+        # parts[k][j]: sum of the last j+1 gradient rows' product k,
+        # added oldest first; the full window is parts[k][-1] + h_new.
+        full = [parts[k][-1] + h_new[k] for k in range(5)]
+        parts = [
+            [h_new[k]] + [parts[k][j] + h_new[k] for j in range(window - 2)]
+            for k in range(5)
+        ]
+        if emit:
+            s_xx, s_yy, s_xy, s_xt, s_yt = full
+            det = s_xx * s_yy - s_xy * s_xy
+            b0 = -s_xt
+            b1 = -s_yt
+            solvable = jnp.abs(det) > det_threshold
+            safe = jnp.where(solvable, det, 1.0)
+            y = g - half
+            inside = col_in & (y >= half) & (y < height - half) & solvable
+            du = jnp.where(inside, (s_yy * b0 - s_xy * b1) / safe, 0.0)
+            dv = jnp.where(inside, (s_xx * b1 - s_xy * b0) / safe, 0.0)
+            u_c = jnp.clip(u_ref[y, pl.ds(c0, block_cols)], -max_disp, max_disp)
+            v_c = jnp.clip(
+                v_ref[y, pl.ds(c0, block_cols)], -max_disp_v, max_disp_v
             )
+            uo_ref[y, pl.ds(c0, block_cols)] = jnp.where(frozen, u_c, u_c + du)
+            vo_ref[y, pl.ds(c0, block_cols)] = jnp.where(frozen, v_c, v_c + dv)
+            acc_u = acc_u + jnp.abs(du)
+            acc_v = acc_v + jnp.abs(dv)
+        return a_0, a_p, it_p, parts, acc_u, acc_v
 
-        ix = (
-            (sh(-1, -1) - sh(-1, 1))
-            + 2.0 * (sh(0, -1) - sh(0, 1))
-            + (sh(1, -1) - sh(1, 1))
-        ) * 0.125
-        iy = (
-            (sh(-1, -1) - sh(1, -1))
-            + 2.0 * (sh(-1, 0) - sh(1, 0))
-            + (sh(-1, 1) - sh(1, 1))
-        ) * 0.125
-    it = jax.lax.slice(p, (base, base), (base + gh, base + gw)) - jax.lax.slice(
-        c, (base, base), (base + gh, base + gw)
+    g0 = r0 - half
+    a_m, _ = load_row(g0 - 1)
+    a_0, it_0 = load_row(g0)
+    zero = jnp.zeros((block_cols,), jnp.float32)
+    parts = [[zero] * (window - 1) for _ in range(5)]
+    carry = (a_m, a_0, it_0, parts, zero, zero)
+    # The first 2*half rows only fill the window; the rest emit.
+    carry = jax.lax.fori_loop(
+        g0, g0 + 2 * half, functools.partial(step, emit=False), carry
     )
 
-    # Separable window sums of the 5 structure-tensor planes (the RTL's
-    # 125-DSP window_accumulator, rtl/unopt/window_accumulator.sv:112-167).
-    def wsum(a):
-        if taps is None:
-            if window_mxu:
-                return _wsum_mxu(a, window, tile_rows, width)
-            if relaxed_order:
-                return _sliding_sum_tree(a, window, tile_rows, width)
-            rows = a[0:tile_rows, :]
-            for d in range(1, window):
-                rows = rows + a[d : tile_rows + d, :]
-            out = jax.lax.slice(rows, (0, 0), (tile_rows, width))
-            for d in range(1, window):
-                out = out + jax.lax.slice(rows, (0, d), (tile_rows, width + d))
-            return out
-        rows = taps[0] * a[0:tile_rows, :]
-        for d in range(1, window):
-            rows = rows + taps[d] * a[d : tile_rows + d, :]
-        out = taps[0] * jax.lax.slice(rows, (0, 0), (tile_rows, width))
-        for d in range(1, window):
-            out = out + taps[d] * jax.lax.slice(
-                rows, (0, d), (tile_rows, width + d)
-            )
-        return out
+    def emit_steps(i, carry):
+        for k in range(UNROLL):
+            carry = step(g0 + 2 * half + i * UNROLL + k, carry, emit=True)
+        return carry
 
-    s_xx = wsum(ix * ix)
-    s_yy = wsum(iy * iy)
-    s_xy = wsum(ix * iy)
-    b0 = -wsum(ix * it)
-    b1 = -wsum(iy * it)
-
-    # Cramer solve gated on |det| (the RTL flow_solver's divide + gate,
-    # rtl/unopt/flow_solver.sv:112-149, with the golden model's 1e-4
-    # threshold, python/lucas_kanade_core.py:131).
-    det = s_xx * s_yy - s_xy * s_xy
-    solvable = jnp.abs(det) > det_threshold
-    inv = jnp.where(solvable, 1.0 / jnp.where(solvable, det, 1.0), 0.0)
-    u = (s_yy * b0 - s_xy * b1) * inv
-    v = (s_xx * b1 - s_xy * b0) * inv
-
-    # Zero the half-window border (reference: flow only for fully-interior
-    # windows, python/lucas_kanade_core.py:104-107) and any grid overhang.
-    r0 = (pl.program_id(0) % n_tiles) * tile_rows
-    rows = jax.lax.broadcasted_iota(jnp.int32, (tile_rows, width), 0) + r0
-    cols = jax.lax.broadcasted_iota(jnp.int32, (tile_rows, width), 1)
-    interior = (
-        (rows >= half)
-        & (rows < height - half)
-        & (cols >= half)
-        & (cols < width - half)
-    )
-    if return_det:
-        return (
-            jnp.where(interior, u, 0.0),
-            jnp.where(interior, v, 0.0),
-            jnp.where(interior, jnp.abs(det), 0.0),
-        )
-    return jnp.where(interior, u, 0.0), jnp.where(interior, v, 0.0)
+    carry = jax.lax.fori_loop(0, block_rows // UNROLL, emit_steps, carry)
+    sdu_ref[...] = carry[4]
+    sdv_ref[...] = carry[5]
 
 
-def _lk_kernel(prev_hbm, curr_hbm, u_ref, v_ref, bufs, sems,
-               *, n_tiles: int, tile_rows: int, height: int, width: int,
-               window: int, det_threshold: float,
-               taps: tuple[float, ...] | None = None,
-               relaxed_order: bool = False, window_mxu: bool = False):
-    p, c = _dma_slabs(
-        prev_hbm, curr_hbm, bufs, sems, n_tiles=n_tiles, tile_rows=tile_rows
-    )
-    u, v = _lk_tile(
-        p, c, n_tiles=n_tiles, tile_rows=tile_rows, height=height,
-        width=width, window=window, det_threshold=det_threshold, taps=taps,
-        relaxed_order=relaxed_order, window_mxu=window_mxu,
-    )
-    u_ref[0] = u
-    v_ref[0] = v
+_interpret = False
 
 
-def _lk_conf_kernel(prev_hbm, curr_hbm, u_ref, v_ref, conf_ref, bufs, sems,
-                    *, n_tiles: int, tile_rows: int, height: int,
-                    width: int, window: int, det_threshold: float,
-                    taps: tuple[float, ...] | None = None,
-                    relaxed_order: bool = False, window_mxu: bool = False):
-    """_lk_kernel plus the |det| confidence plane (texture/conditioning
-    measure — free in-kernel, one extra HBM write when requested)."""
-    p, c = _dma_slabs(
-        prev_hbm, curr_hbm, bufs, sems, n_tiles=n_tiles, tile_rows=tile_rows
-    )
-    u, v, conf = _lk_tile(
-        p, c, n_tiles=n_tiles, tile_rows=tile_rows, height=height,
-        width=width, window=window, det_threshold=det_threshold, taps=taps,
-        return_det=True, relaxed_order=relaxed_order, window_mxu=window_mxu,
-    )
-    u_ref[0] = u
-    v_ref[0] = v
-    conf_ref[0] = conf
+@contextlib.contextmanager
+def interpret_mode():
+    """Run :func:`refine` in the Pallas interpreter, on any device,
+    instead of compiling it for the GPU through Triton: for tests and
+    rehearsals on the CPU.
 
-
-def _lk_refine_kernel(prev_hbm, curr_hbm, u_in, v_in, conv_ref,
-                      u_out, v_out, sdu_ref, sdv_ref, bufs, sems,
-                      *, n_tiles: int, tile_rows: int, height: int,
-                      width: int, window: int, det_threshold: float,
-                      max_disp: float, max_disp_v: float,
-                      relaxed_order: bool = False, window_mxu: bool = False):
-    """One fused refinement accumulate: residual LK on (prev, warped) +
-    the coarse-to-fine bookkeeping the XLA driver otherwise pays three
-    plane passes for — per-level flow clamp, convergence-latched
-    accumulate, and the |du|,|dv| partial sums for the early-exit test
-    (reference python/lucas_kanade_pyramidal.py:201-223)."""
-    p, c = _dma_slabs(
-        prev_hbm, curr_hbm, bufs, sems, n_tiles=n_tiles, tile_rows=tile_rows
-    )
-    du, dv = _lk_tile(
-        p, c, n_tiles=n_tiles, tile_rows=tile_rows, height=height,
-        width=width, window=window, det_threshold=det_threshold,
-        relaxed_order=relaxed_order, window_mxu=window_mxu,
-    )
-    # RTL-style per-level saturation of the carried flow (the solver's
-    # S8.7 clamp analog, flow_solver.sv:134-144), matching the driver's
-    # pre-warp clip; the warp kernel applies the same clip internally.
-    u_c = jnp.clip(u_in[0], -max_disp, max_disp)
-    v_c = jnp.clip(v_in[0], -max_disp_v, max_disp_v)
-    # Converged frames stop accumulating (the reference's break; under
-    # vmap the while_loop keeps running until every frame converges).
-    # conv_ref is the full (bsz, 1) SMEM array (blocks smaller than the
-    # array are rejected for SMEM); index this step's batch element.
-    frozen = conv_ref[pl.program_id(0) // n_tiles, 0] > 0
-    u_out[0] = jnp.where(frozen, u_c, u_c + du)
-    v_out[0] = jnp.where(frozen, v_c, v_c + dv)
-    # Per-tile partial sums, broadcast over one min-tile (8, 128) block —
-    # Mosaic requires output blocks of at least a full register tile.
-    sdu_ref[0] = jnp.full((8, 128), jnp.sum(jnp.abs(du)), du.dtype)
-    sdv_ref[0] = jnp.full((8, 128), jnp.sum(jnp.abs(dv)), dv.dtype)
-
-
-def _window_taps(window_size: int, weight_sigma: float) -> tuple[float, ...]:
-    """1-D separable factor of ops.gaussian_window_kernel (k2 =
-    outer(phi, phi)/sum == outer(phi/sum(phi), phi/sum(phi)))."""
-    import numpy as np
-
-    r = window_size // 2
-    x = np.arange(-r, r + 1, dtype=np.float64)
-    phi = np.exp(-0.5 * (x / weight_sigma) ** 2)
-    phi /= phi.sum()
-    return tuple(float(t) for t in phi.astype(np.float32))
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "window_size", "det_threshold", "tile_rows",
-        "gaussian_weights", "weight_sigma", "return_confidence",
-        "relaxed_order", "window_mxu",
-    ),
-)
-def _fused_batched(
-    frame_prev: jax.Array,
-    frame_curr: jax.Array,
-    window_size: int,
-    det_threshold: float,
-    tile_rows: int | None,
-    gaussian_weights: bool = False,
-    weight_sigma: float = 1.0,
-    return_confidence: bool = False,
-    relaxed_order: bool = False,
-    window_mxu: bool = False,
-):
-    """(B, H, W) batched fused LK (+ optional |det| confidence plane)."""
-    bsz, h, w = frame_prev.shape
-    if tile_rows is None:
-        # ~30 live (th, w)-sized f32 planes in VMEM; 14 MB budget with a
-        # 64-row cap (v5e sweep at 1080p: 64 fastest, 88 overflows).
-        budget_rows = (14 * 1024 * 1024) // (30 * 4 * max(w, 128))
-        tile_rows = min(64, max(8, (budget_rows // 8) * 8))
-    th = min(tile_rows, _round_up(h, 8))
-    hp = _round_up(h, th)
-    # DMA slabs must be tile-aligned: rows to 8 sublanes (th, APRON do
-    # that), lanes to 128 — pad the slab width up to a 128 multiple.
-    wp = _round_up(w + 2 * APRON, 128)
-
-    def pad(f):
-        f = jnp.pad(f, ((0, 0), (1, 1), (1, 1)), mode="symmetric")
-        return jnp.pad(f, ((0, 0), (3, 3 + hp - h), (3, wp - w - 5)))
-
-    prev_p = pad(frame_prev)
-    curr_p = pad(frame_curr)
-
-    n_tiles = hp // th
-    kernel = functools.partial(
-        _lk_conf_kernel if return_confidence else _lk_kernel,
-        n_tiles=n_tiles,
-        tile_rows=th,
-        height=h,
-        width=w,
-        window=window_size,
-        det_threshold=det_threshold,
-        taps=_window_taps(window_size, weight_sigma) if gaussian_weights
-        else None,
-        relaxed_order=relaxed_order,
-        window_mxu=window_mxu,
-    )
-    n_out = 3 if return_confidence else 2
-    plane_spec = pl.BlockSpec(
-        (1, th, w),
-        lambda s: (s // n_tiles, s % n_tiles, 0),
-        memory_space=pltpu.VMEM,
-    )
-    out = pl.pallas_call(
-        kernel,
-        grid=(bsz * n_tiles,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=(plane_spec,) * n_out,
-        out_shape=(
-            jax.ShapeDtypeStruct((bsz, hp, w), frame_prev.dtype),
-        ) * n_out,
-        scratch_shapes=[
-            pltpu.VMEM((2, 2, th + 2 * APRON, wp), frame_prev.dtype),
-            pltpu.SemaphoreType.DMA((2, 2)),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=int(190 * bsz * h * w),
-            bytes_accessed=int((16 + 4 * (n_out - 2)) * bsz * h * w),
-            transcendentals=0,
-        ),
-    )(prev_p, curr_p)
-    if hp != h:
-        out = tuple(o[:, :h] for o in out)
-    return out
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "window_size", "det_threshold", "max_disp", "tile_rows", "max_disp_v",
-        "relaxed_order", "window_mxu",
-    ),
-)
-def _refine_batched(
-    frame_prev: jax.Array,
-    warped: jax.Array,
-    flow_u: jax.Array,
-    flow_v: jax.Array,
-    converged: jax.Array,
-    window_size: int,
-    det_threshold: float,
-    max_disp: float,
-    tile_rows: int | None,
-    max_disp_v: float | None = None,
-    relaxed_order: bool = False,
-    window_mxu: bool = False,
-) -> tuple[jax.Array, jax.Array, jax.Array, jax.Array]:
-    """(B, H, W) batched fused refine accumulate.
-
-    Returns (u_next, v_next, sum|du|, sum|dv|) with the sums per batch
-    element. ``converged`` is (B,) bool/int — elements already converged
-    pass their (clipped) flow through unchanged.
+    The switch is read when a caller is traced, so enter it before the
+    first call of any jitted function that reaches the kernel.
     """
-    if max_disp_v is None:
-        max_disp_v = max_disp
-    bsz, h, w = frame_prev.shape
-    compiler_params = None
-    if tile_rows is None:
-        # ~30 live (th, w)-sized f32 planes in VMEM; 14 MB budget with a
-        # 64-row cap (v5e sweep at 1080p: 64 fastest, 88 overflows).
-        budget_rows = (14 * 1024 * 1024) // (30 * 4 * max(w, 128))
-        tile_rows = min(64, max(8, (budget_rows // 8) * 8))
-        if w >= 3584 and tile_rows < 40 and relaxed_order:
-            # r5 wide-frame sweep (scripts/r5_lk_tile_sweep.py, all
-            # outputs live): 40-row tiles measured 0.81 -> 0.74 ms at
-            # 4K — the 24-row budget tile re-reads the (tile + 8)-row
-            # DMA slab 1.33x and under-amortizes the per-tile prelude.
-            # Standalone compiles account ~16.6 MB scoped VMEM for this
-            # shape (the same program compiles under the 16 MB default
-            # inside a larger jitted loop — context-dependent
-            # accounting), so raise the scoped cap a notch; 48 rows
-            # fails even at the raised cap. relaxed_order only: the
-            # exact-order kernel holds more live planes (20.9 MB at 40
-            # rows, over even the raised cap) and keeps the budget tile.
-            tile_rows = 40
-            compiler_params = pltpu.CompilerParams(
-                vmem_limit_bytes=18 * 1024 * 1024
-            )
-    th = min(tile_rows, _round_up(h, 8))
-    hp = _round_up(h, th)
-    wp = _round_up(w + 2 * APRON, 128)
-
-    def pad(f):
-        f = jnp.pad(f, ((0, 0), (1, 1), (1, 1)), mode="symmetric")
-        return jnp.pad(f, ((0, 0), (3, 3 + hp - h), (3, wp - w - 5)))
-
-    prev_p = pad(frame_prev)
-    curr_p = pad(warped)
-    u_p = jnp.pad(flow_u, ((0, 0), (0, hp - h), (0, 0)))
-    v_p = jnp.pad(flow_v, ((0, 0), (0, hp - h), (0, 0)))
-    conv = converged.astype(jnp.int32).reshape(bsz, 1)
-
-    n_tiles = hp // th
-    kernel = functools.partial(
-        _lk_refine_kernel,
-        n_tiles=n_tiles,
-        tile_rows=th,
-        height=h,
-        width=w,
-        window=window_size,
-        det_threshold=det_threshold,
-        max_disp=max_disp,
-        max_disp_v=max_disp_v,
-        relaxed_order=relaxed_order,
-        window_mxu=window_mxu,
-    )
-    flow_spec = pl.BlockSpec(
-        (1, th, w), lambda s: (s // n_tiles, s % n_tiles, 0),
-        memory_space=pltpu.VMEM,
-    )
-    sum_spec = pl.BlockSpec(
-        (1, 8, 128), lambda s: (s, 0, 0), memory_space=pltpu.VMEM
-    )
-    u2, v2, sdu, sdv = pl.pallas_call(
-        kernel,
-        grid=(bsz * n_tiles,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-            flow_spec,
-            flow_spec,
-            pl.BlockSpec(
-                (bsz, 1), lambda s: (0, 0), memory_space=pltpu.SMEM
-            ),
-        ],
-        out_specs=(flow_spec, flow_spec, sum_spec, sum_spec),
-        out_shape=(
-            jax.ShapeDtypeStruct((bsz, hp, w), frame_prev.dtype),
-            jax.ShapeDtypeStruct((bsz, hp, w), frame_prev.dtype),
-            jax.ShapeDtypeStruct((bsz * n_tiles, 8, 128), frame_prev.dtype),
-            jax.ShapeDtypeStruct((bsz * n_tiles, 8, 128), frame_prev.dtype),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((2, 2, th + 2 * APRON, wp), frame_prev.dtype),
-            pltpu.SemaphoreType.DMA((2, 2)),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=int(200 * bsz * h * w),
-            bytes_accessed=int(32 * bsz * h * w),
-            transcendentals=0,
-        ),
-        **({"compiler_params": compiler_params} if compiler_params else {}),
-    )(prev_p, curr_p, u_p, v_p, conv)
-    if hp != h:
-        u2 = u2[:, :h]
-        v2 = v2[:, :h]
-    sums_du = sdu[:, 0, 0].reshape(bsz, n_tiles).sum(axis=1)
-    sums_dv = sdv[:, 0, 0].reshape(bsz, n_tiles).sum(axis=1)
-    return u2, v2, sums_du, sums_dv
+    global _interpret
+    previous, _interpret = _interpret, True
+    try:
+        yield
+    finally:
+        _interpret = previous
 
 
-@functools.lru_cache(maxsize=None)
-def _make_refine(
-    window_size: int, det_threshold: float, max_disp: float,
-    tile_rows: int | None, max_disp_v: float | None = None,
-    relaxed_order: bool = False,
-):
-    """custom_vmap wrapper for one static refine configuration."""
-
-    @jax.custom_batching.custom_vmap
-    def refine(prev, warped, u, v, conv):
-        u2, v2, sdu, sdv = _refine_batched(
-            prev[None], warped[None], u[None], v[None], conv[None],
-            window_size, det_threshold, max_disp, tile_rows, max_disp_v,
-            relaxed_order,
-        )
-        return u2[0], v2[0], sdu[0], sdv[0]
-
-    @refine.def_vmap
-    def _vmap_rule(axis_size, in_batched, prev, warped, u, v, conv):  # noqa: ANN001
-        args = []
-        for a, batched in zip((prev, warped, u, v, conv), in_batched):
-            if not batched:
-                a = jnp.broadcast_to(a, (axis_size,) + a.shape)
-            args.append(a)
-        out = _refine_batched(
-            *args, window_size, det_threshold, max_disp, tile_rows,
-            max_disp_v, relaxed_order,
-        )
-        return out, (True, True, True, True)
-
-    return refine
-
-
-def lucas_kanade_refine(
-    frame_prev: jax.Array,
-    warped: jax.Array,
+def refine(
+    prev_p: jax.Array,
+    warped_p: jax.Array,
     flow_u: jax.Array,
     flow_v: jax.Array,
     converged: jax.Array,
+    *,
+    height: int,
+    width: int,
     window_size: int = 5,
     det_threshold: float = 1e-4,
     max_disp: float = 8.0,
-    tile_rows: int | None = None,
-    max_disp_v: float | None = None,
-    relaxed_order: bool = False,
-    window_mxu: bool = False,
+    max_disp_v: float = 8.0,
 ) -> tuple[jax.Array, jax.Array, jax.Array, jax.Array]:
-    """Fused coarse-to-fine refinement step.
+    """One fused refinement accumulate on padded planes.
 
-    Computes residual LK flow between ``frame_prev`` and the pre-warped
-    current frame, clips the carried flow to ``+-max_disp``
-    (vertically ``+-max_disp_v``, defaulting to ``max_disp`` — must
-    match the warp kernel's band so saturation is consistent between
-    sampling and accumulation) and accumulates the residual in-kernel,
-    returning ``(u_next, v_next, sum|du|, sum|dv|)`` — the whole body of
-    one reference refinement iteration (python/lucas_kanade_pyramidal.py:
-    201-223) minus the warp, in one pass over HBM. Accepts (H, W) or
-    (B, H, W) plus matching scalar/(B,) ``converged``; composes with
-    ``jax.vmap``.
+    ``prev_p``/``warped_p`` come from :func:`pad_frame`, ``flow_u``/
+    ``flow_v`` from :func:`pad_flow` (or a previous call). The carried
+    flow is clipped to ``+-max_disp`` (vertically ``+-max_disp_v``) and,
+    unless ``converged``, the residual LK flow between ``prev`` and the
+    warped frame is added. Returns ``(u_next, v_next, sum|du|,
+    sum|dv|)`` with the flow still padded. Composes with ``jax.vmap``.
+    Compiles for the GPU through Triton, or runs interpreted inside
+    :func:`interpret_mode`.
     """
-    if window_size // 2 + 1 > APRON:
-        raise ValueError("pallas kernel supports window_size <= 7; use backend='jnp'")
-    if frame_prev.ndim == 3:
-        return _refine_batched(
-            frame_prev, warped, flow_u, flow_v, converged,
-            window_size, det_threshold, max_disp, tile_rows, max_disp_v,
-            relaxed_order, window_mxu,
+    return _refine(
+        prev_p, warped_p, flow_u, flow_v, converged, height=height,
+        width=width, window_size=window_size, det_threshold=det_threshold,
+        max_disp=float(max_disp), max_disp_v=float(max_disp_v),
+        interpret=_interpret,
+    )
+
+
+@functools.partial(
+    jax.jit,
+    static_argnames=(
+        "height", "width", "window_size", "det_threshold", "max_disp",
+        "max_disp_v", "interpret",
+    ),
+)
+def _refine(prev_p, warped_p, flow_u, flow_v, converged, *, height, width,
+            window_size, det_threshold, max_disp, max_disp_v, interpret):
+    if window_size % 2 != 1 or window_size < 3:
+        raise ValueError(f"window_size must be odd and >= 3, got {window_size}")
+    hq, wq = flow_shape(height, width)
+    off = _offset(window_size)
+    if prev_p.shape != (hq + 2 * off, wq + 2 * off) or flow_u.shape != (hq, wq):
+        raise ValueError(
+            f"padded shapes {prev_p.shape}/{flow_u.shape} do not match a "
+            f"{height}x{width} frame; use pad_frame/pad_flow"
         )
-    return _make_refine(
-        window_size, det_threshold, max_disp, tile_rows, max_disp_v,
-        relaxed_order,
-    )(frame_prev, warped, flow_u, flow_v, converged)
-
-
-@functools.lru_cache(maxsize=None)
-def _make_fused(window_size: int, det_threshold: float, tile_rows: int | None,
-                gaussian_weights: bool = False, weight_sigma: float = 1.0,
-                return_confidence: bool = False,
-                relaxed_order: bool = False):
-    """custom_vmap wrapper for one static configuration."""
-
-    @jax.custom_batching.custom_vmap
-    def fused(prev, curr):
-        out = _fused_batched(
-            prev[None], curr[None], window_size, det_threshold, tile_rows,
-            gaussian_weights, weight_sigma, return_confidence, relaxed_order,
-        )
-        return tuple(o[0] for o in out)
-
-    @fused.def_vmap
-    def _vmap_rule(axis_size, in_batched, prev, curr):  # noqa: ANN001
-        pb, cb = in_batched
-        if not pb:
-            prev = jnp.broadcast_to(prev, (axis_size,) + prev.shape)
-        if not cb:
-            curr = jnp.broadcast_to(curr, (axis_size,) + curr.shape)
-        out = _fused_batched(
-            prev, curr, window_size, det_threshold, tile_rows,
-            gaussian_weights, weight_sigma, return_confidence, relaxed_order,
-        )
-        return out, (True,) * len(out)
-
-    return fused
-
-
-def lucas_kanade_fused(
-    frame_prev: jax.Array,
-    frame_curr: jax.Array,
-    window_size: int = 5,
-    det_threshold: float = 1e-4,
-    tile_rows: int | None = None,
-    gaussian_weights: bool = False,
-    weight_sigma: float = 1.0,
-    return_confidence: bool = False,
-    relaxed_order: bool = False,
-    window_mxu: bool = False,
-):
-    """Fused dense LK flow: (u, v) = kernel(prev, curr).
-
-    Drop-in twin of the jnp path (tpuflow.flow.single_scale with
-    backend="jnp") — SURVEY.md §7 step 4. Accepts (H, W) frames or
-    (B, H, W) batches; also composes with ``jax.vmap``.
-
-    ``return_confidence=True`` adds a third output: |det| of the
-    structure tensor (the texture/conditioning measure the solve's gate
-    evaluates anyway) — one extra HBM write, no extra compute.
-    """
-    if window_size // 2 + 1 > APRON:
-        # The slab apron covers Sobel (1) + window half; 3/5/7 windows fit.
-        raise ValueError("pallas kernel supports window_size <= 7; use backend='jnp'")
-    if frame_prev.ndim == 3:
-        return _fused_batched(
-            frame_prev, frame_curr, window_size, det_threshold, tile_rows,
-            gaussian_weights, weight_sigma, return_confidence, relaxed_order,
-            window_mxu,
-        )
-    return _make_fused(
-        window_size, det_threshold, tile_rows, gaussian_weights,
-        weight_sigma, return_confidence, relaxed_order,
-    )(frame_prev, frame_curr)
+    block_rows, block_cols = _geometry(height, width)
+    grid = (hq // block_rows, wq // block_cols)
+    kernel = functools.partial(
+        _refine_kernel, height=height, width=width, window=window_size,
+        det_threshold=det_threshold, max_disp=float(max_disp),
+        max_disp_v=float(max_disp_v), block_rows=block_rows,
+        block_cols=block_cols,
+    )
+    whole = pl.BlockSpec()
+    part = pl.BlockSpec((None, block_cols), lambda i, j: (i, j))
+    conv = jnp.reshape(converged, (1,)).astype(jnp.int32)
+    u2, v2, sdu, sdv = pl.pallas_call(
+        kernel,
+        grid=grid,
+        in_specs=[whole] * 5,
+        out_specs=(whole, whole, part, part),
+        out_shape=(
+            jax.ShapeDtypeStruct((hq, wq), jnp.float32),
+            jax.ShapeDtypeStruct((hq, wq), jnp.float32),
+            jax.ShapeDtypeStruct((grid[0], wq), jnp.float32),
+            jax.ShapeDtypeStruct((grid[0], wq), jnp.float32),
+        ),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=NUM_STAGES
+        ),
+        # Each program reads a flow element before it writes it, and no
+        # other program touches it, so the flow is updated in place.
+        input_output_aliases={2: 0, 3: 1},
+        interpret=interpret,
+        name="lk_refine",
+    )(prev_p, warped_p, flow_u, flow_v, conv)
+    return u2, v2, jnp.sum(sdu), jnp.sum(sdv)

@@ -1,26 +1,25 @@
 """Distributed (sharded) pyramid build + flow upsampling operators.
 
-Round-4's tiled pyramidal path all_gathered BOTH full frames per step
-to build replicated coarse pyramids — the committed scaling model's
-dominant traffic term (0.66 ms/frame over DCN at 1080p, decaying the
-tiled axis to 0.54 efficiency at 4 chips and 0.09 cross-host,
-benchmarks/r04/scaling_model.json). The reference never gathers: each
+An earlier tiled pyramidal path all_gathered BOTH full frames per step
+to build replicated coarse pyramids: per-frame traffic O(frame), the
+term that dominates once devices sit on different hosts. The reference
+never gathers: each
 RTL pyramid_builder consumes its own stream and produces its level from
 line buffers (/root/reference/rtl/unopt/pyramid_builder.sv:22-404).
 
-This module is the TPU-native equivalent: the pyramid's per-axis
+This module is the sharded equivalent: the pyramid's per-axis
 operators (Gaussian blur fused with linspace bilinear resampling, and
 the flow upsampler) are BANDED matrices (`tpuflow.core.ops`
 ``_downsample_matrix_np`` / ``_resample_matrix_np`` — exact zeros
 outside a ~radius-10 band for sigma=2), so a device holding a row/column
 tile of a level can compute its tile of the next level from its own
-rows plus a fixed halo: halo-exchange the overhang via ``ppermute``
-(ICI), then apply the device's static slice of the operator with one
-MXU matmul. Per-device operator slices are precomputed as a stacked
+rows plus a fixed halo: halo-exchange the overhang via ``ppermute``,
+then apply the device's static slice of the operator with one
+matmul. Per-device operator slices are precomputed as a stacked
 constant and selected by ``lax.axis_index`` inside ``shard_map``.
 
 Traffic per level build: O(halo * tile_perimeter) bytes instead of
-O(frame) — the term the r4 model showed riding DCN cross-host.
+O(frame).
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 The multi-chip analog of the reference's shared-BRAM port arbitration
 (SURVEY.md §2.6): window-crossing reads at tile boundaries become
-neighbor exchanges of border strips via ``jax.lax.ppermute`` over ICI.
+neighbor exchanges of border strips via ``jax.lax.ppermute``.
 Runs inside ``shard_map``; every function here operates on the *local*
 tile.
 
@@ -78,7 +78,7 @@ def exchange_halo_2d(
 
     Columns are exchanged first and rows second, on the widened tile, so
     corner halos arrive already containing the diagonal neighbor's data
-    (relayed through the vertical neighbor — two ICI hops, no explicit
+    (relayed through the vertical neighbor — two hops, no explicit
     diagonal sends).
     """
     x = _exchange_axis(x, tx_axis, tx, halo, axis=1, boundary=boundary)

@@ -2,10 +2,11 @@
 
 The reference is a single-chip design; its "parallelism" is spatial
 (125 DSP multiplies/cycle, per-level solver pipelines — SURVEY.md §2.6).
-The TPU-native scale-out analog is a 2-D spatial tiling of the frame
-across a device mesh, optionally with a leading data-parallel axis over
-frame pairs, with XLA collectives over ICI (and DCN across hosts via
-jax.distributed — see ``initialize_multihost``).
+The scale-out analog is a 2-D spatial tiling of the frame across a
+device mesh, optionally with a leading data-parallel axis over frame
+pairs, with XLA collectives between the devices of a host (NVLink
+between GPUs) and across hosts via jax.distributed (see
+``initialize_multihost``).
 
 Mesh axes:
     "batch" — data parallel over independent frame pairs/streams
@@ -42,7 +43,7 @@ def initialize_multihost(
     num_processes: int | None = None,
     process_id: int | None = None,
 ) -> bool:
-    """Initialize cross-host JAX (DCN) — call once per process before any
+    """Initialize cross-host JAX — call once per process before any
     device computation on multi-host deployments.
 
     Returns True when this call initialized the runtime, False when it
@@ -53,7 +54,7 @@ def initialize_multihost(
     Exercised for real (two local processes over a localhost
     coordinator, global 2x4-device CPU mesh, cross-process psum) by
     tests/test_multihost.py — the closest this single-host rig can get
-    to a DCN bring-up.
+    to a cross-host bring-up.
     """
     if jax.distributed.is_initialized():
         return False

@@ -1,9 +1,9 @@
-"""Multi-chip tiled dense Lucas-Kanade flow.
+"""Multi-device tiled dense Lucas-Kanade flow.
 
 Shards the frame as a 2-D grid of tiles over a ("batch", "ty", "tx")
 mesh (SURVEY.md §2.6 / §5 "long-context analog"): each device computes
 flow for its tile after a 3-pixel halo exchange (1 px Sobel + 2 px
-window apron) over ICI via ``ppermute``. Output is bit-equivalent to the
+window apron) via ``ppermute``. Output is bit-equivalent to the
 single-device jnp path (tests/test_sharding.py), including the
 symmetric-boundary gradients at true image edges and the zero border /
 ``|det|`` gate semantics of the reference golden model

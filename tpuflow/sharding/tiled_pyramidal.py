@@ -7,7 +7,7 @@ is distributed.
 - **Every level whose tile is big enough is sharded end-to-end.** The
   pyramid downsample and the flow upsampler are banded per-axis
   operators, so each device computes its tile of every level from its
-  own rows plus a ~10-px halo exchanged over ICI
+  own rows plus a ~10-px halo exchanged between devices
   (``tpuflow.sharding.dist_pyramid``) — no full-frame ``all_gather``.
   At 1080p on a (2, 2) or (2, 4) mesh and at 4K up to (4, 4), every
   level shards: per-frame communication is halo strips only, the term
@@ -30,7 +30,7 @@ is distributed.
   tests psum the global |residual| means.
 
 Semantics: matches the single-device fast path
-(``lucas_kanade_pyramidal(..., rtl_clamp=True)``) — exactly when only
+(``lucas_kanade_pyramidal(..., backend="xla")``) — exactly when only
 the finest level shards, and to f32 rounding of the banded per-device
 operator contractions (~1 ulp on level images; see
 ``dist_pyramid.sharded_downsample``) when coarse levels shard too.
@@ -43,7 +43,6 @@ level boundary; a latency lever, not a semantics gap).
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import jax
@@ -57,24 +56,6 @@ from tpuflow.kernels import jnp_ref
 from tpuflow.sharding import dist_pyramid
 from tpuflow.sharding import halo as halo_mod
 from tpuflow.sharding.tiled_flow import HALO, _local_lk
-
-
-def _interpret_ctx(interpret: bool):
-    """Pallas interpret-mode context for the CPU-mesh composition.
-
-    Placement matters, empirically (8 virtual CPU devices, jax 0.8):
-    entering ``force_tpu_interpret_mode`` INSIDE the shard-mapped code,
-    immediately around the kernel calls, runs fine; wrapping the whole
-    jit/device_put/dispatch from OUTSIDE deadlocks the interpreter's
-    global device barrier at >=8 devices (threads stuck in
-    interpret_pallas_call._allocate_buffer). Scripts/tests should pass
-    ``interpret=True`` here rather than wrapping the call site.
-    """
-    if interpret:
-        from jax.experimental.pallas import tpu as pltpu
-
-        return pltpu.force_tpu_interpret_mode()
-    return contextlib.nullcontext()
 
 
 def _level_shapes(
@@ -117,73 +98,33 @@ def _warp_tile(img_ext, u, v, halo, gy0, gx0, gh, gw):
     """Backward warp of a halo-extended tile with local flow.
 
     img_ext: (h + 2*halo, w + 2*halo); |u|,|v| <= halo - 1 guaranteed by
-    the caller's clamp. Bilinear with the golden model's hard-OOB
-    semantics at true image borders.
+    the caller's clamp. Samples at the global coordinates, so every
+    fractional part, and every sample, is the single-device warp's
+    (``jnp_ref.warp_image``): tile-local coordinates round the fractions
+    differently, and on noisy texture the refinement turns that into
+    flow differences of 1e-3 px. Out of range of the global image -> 0.
     """
     h, w = u.shape
-    yy = lax.broadcasted_iota(jnp.float32, (h, w), 0)
-    xx = lax.broadcasted_iota(jnp.float32, (h, w), 1)
-    val = ops.map_coordinates_bilinear(
-        img_ext, yy + v + halo, xx + u + halo, cval=0.0
+    yy = (lax.broadcasted_iota(jnp.int32, (h, w), 0) + gy0).astype(jnp.float32)
+    xx = (lax.broadcasted_iota(jnp.int32, (h, w), 1) + gx0).astype(jnp.float32)
+    return ops.map_coordinates_bilinear(
+        img_ext, yy + v, xx + u, cval=0.0,
+        origin=(gy0 - halo, gx0 - halo), bounds=(gh, gw),
     )
-    # Global OOB -> 0 (the extended tile's zero fill already covers the
-    # values; this mask reproduces the exact boundary blend cut-off).
-    gy = yy + gy0 + v
-    gx = xx + gx0 + u
-    inside = (gy >= 0) & (gy <= gh - 1) & (gx >= 0) & (gx <= gw - 1)
-    return jnp.where(inside, val, 0.0)
-
-
-def _warp_tile_pallas(curr_ext, u, v, halo, gy0, gx0, gh, gw, max_disp,
-                      max_disp_v=None, packed_u8=False, packed_u16=False,
-                      interpret=False):
-    """Banded Pallas warp of a halo-extended tile (the fast-path twin of
-    :func:`_warp_tile`): flow is zero-padded out to the extended shape,
-    the hardware-gather kernel warps the whole extended tile (its local
-    OOB mask never fires for center pixels — |flow| <= max_disp < halo),
-    and the center crop gets the exact global-border zero cut-off.
-
-    ``packed_u8`` (PyramidConfig.warp_packed_u8): the finest-level tile
-    is raw-frame data (integer-valued for 8-bit sources; halo/zero
-    padding stays integer), so the packed corner-pair gather kernel is
-    bit-identical here like in the single-device driver. ``packed_u16``
-    (PyramidConfig.warp_packed_u16): the 8.8 fixed-point corner-pair
-    kernel the single-device fast path runs on the blurred COARSE
-    levels — plumbed here so a sharded coarse level uses the same
-    kernel as its single-device twin (r4 advisor finding). The caller
-    pre-clips flow to the band, so the in-kernel clamp the packed paths
-    require is a no-op re-clip."""
-    from tpuflow.kernels import pallas_warp
-
-    h, w = u.shape
-    u_e = jnp.pad(u, halo)
-    v_e = jnp.pad(v, halo)
-    with _interpret_ctx(interpret):
-        out_ext = pallas_warp.warp_image_banded(
-            curr_ext, u_e, v_e, max_disp=max_disp, max_disp_v=max_disp_v,
-            clamp_flow=packed_u8 or packed_u16,
-            packed_u8=packed_u8, packed_u16=packed_u16,
-        )
-    val = lax.dynamic_slice(out_ext, (halo, halo), (h, w))
-    yy = lax.broadcasted_iota(jnp.float32, (h, w), 0)
-    xx = lax.broadcasted_iota(jnp.float32, (h, w), 1)
-    gy = yy + gy0 + v
-    gx = xx + gx0 + u
-    inside = (gy >= 0) & (gy <= gh - 1) & (gx >= 0) & (gx <= gw - 1)
-    return jnp.where(inside, val, 0.0)
 
 
 def _local_lk_pallas(prev_t, warped, gy0, gx0, gh, gw, ty, tx,
-                     window, det_threshold, interpret=False):
-    """Per-shard fused-Pallas residual LK (fast-path twin of
-    :func:`tpuflow.sharding.tiled_flow._local_lk`).
+                     window, det_threshold):
+    """Per-shard residual LK through the fused Pallas refine kernel
+    (twin of :func:`tpuflow.sharding.tiled_flow._local_lk`).
 
     The 3-px Sobel+window apron travels by halo exchange of the raw
-    prev/warped tiles (symm boundary == the kernel's own global symm
-    pad for the one ring that matters); the kernel then treats the
-    extended tile as a standalone image — its symm/interior handling of
-    the OUTER ring only affects outputs inside the cropped-away halo.
-    The global half-window border zeroing is reapplied by mask."""
+    prev/warped tiles (symm boundary == the kernel's own symm pad for
+    the one ring that matters); the kernel then treats the extended tile
+    as a standalone image with zero carried flow, so its output is the
+    residual. Its border handling of the OUTER ring only affects outputs
+    inside the cropped-away halo; the global half-window border zeroing
+    is reapplied by mask."""
     from tpuflow.kernels import pallas_lk
 
     half = window // 2
@@ -195,11 +136,14 @@ def _local_lk_pallas(prev_t, warped, gy0, gx0, gh, gw, ty, tx,
     warped_ext = halo_mod.exchange_halo_2d(
         warped, ext, ty=ty, tx=tx, boundary="symm"
     )
-    with _interpret_ctx(interpret):
-        du_e, dv_e = pallas_lk.lucas_kanade_fused(
-            prev_ext, warped_ext, window_size=window,
-            det_threshold=det_threshold,
-        )
+    he, we = prev_ext.shape
+    zero = pallas_lk.pad_flow(jnp.zeros((he, we), jnp.float32))
+    du_e, dv_e, _, _ = pallas_lk.refine(
+        pallas_lk.pad_frame(prev_ext, window),
+        pallas_lk.pad_frame(warped_ext, window),
+        zero, zero, jnp.asarray(False), height=he, width=we,
+        window_size=window, det_threshold=det_threshold,
+    )
     du = lax.dynamic_slice(du_e, (ext, ext), (h, w))
     dv = lax.dynamic_slice(dv_e, (ext, ext), (h, w))
     rows = lax.broadcasted_iota(jnp.int32, (h, w), 0) + gy0
@@ -216,23 +160,19 @@ def tiled_lucas_kanade_pyramidal(
     frame_curr: jax.Array,
     mesh: Mesh,
     config: PyramidConfig | None = None,
-    backend: str = "jnp",
-    interpret: bool = False,
+    backend: str = "xla",
 ) -> tuple[jax.Array, jax.Array]:
     """Pyramidal flow over ("batch", "ty", "tx")-sharded (B, H, W) frames.
 
-    Matches ``lucas_kanade_pyramidal(..., rtl_clamp=True)`` (see the
-    module docstring for the exactness statement) with ``backend="jnp"``;
-    ``backend="pallas"`` swaps the per-shard warp and LK solves for the
-    fused TPU kernels (same fast-path numerics as the single-device
-    pallas backend, including the packed-u8 finest / packed-u16 coarse
-    warp selection).
-
-    ``interpret=True`` runs the pallas kernels in TPU interpret mode —
-    the CPU-virtual-mesh validation path (tests/conftest's 8-device
-    mesh, __graft_entry__.dryrun_multichip). See :func:`_interpret_ctx`
-    for why the context must live here and not at the call site.
+    Always runs fast-path semantics: matches
+    ``lucas_kanade_pyramidal(..., backend="xla")`` (see the module
+    docstring for the exactness statement). ``backend="pallas"`` runs
+    the per-shard LK solves, and the replicated coarse levels, through
+    the fused Pallas refine kernel; any other backend leaves them to
+    XLA.
     """
+    use_kernel = backend == "pallas"
+    level_backend = "pallas" if use_kernel else "xla"
     cfg = config or PyramidConfig()
     ty = mesh.shape["ty"]
     tx = mesh.shape["tx"]
@@ -258,11 +198,6 @@ def tiled_lucas_kanade_pyramidal(
         th, tw = lh // ty, lw // tx
         gy0 = lax.axis_index("ty") * th
         gx0 = lax.axis_index("tx") * tw
-        finest = lvl == n_levels - 1
-        use_u8 = cfg.warp_packed_u8 and finest and backend == "pallas"
-        use_u16 = (
-            cfg.warp_packed_u16 and not use_u8 and backend == "pallas"
-        )
 
         def cond(state):
             _, _, i, converged = state
@@ -270,31 +205,22 @@ def tiled_lucas_kanade_pyramidal(
 
         def body(state):
             u, v, i, converged = state
-            u = jnp.clip(u, -cfg.max_disp, cfg.max_disp)
-            # Vertical band may be narrower (PyramidConfig.max_disp_v):
-            # same clip as the single-device path so tiled == single.
-            v = jnp.clip(
-                v, -cfg.max_disp_v_effective, cfg.max_disp_v_effective
+            # The single-device fast path's clamp, so tiled == single.
+            u, v = jnp_ref.clamp_flow(
+                u, v, cfg.max_disp, cfg.max_disp_v_effective
             )
             curr_ext = halo_mod.exchange_halo_2d(
                 curr_t, warp_halo, ty=ty, tx=tx, boundary="zero"
             )
-            if backend == "pallas":
-                warped = _warp_tile_pallas(
-                    curr_ext, u, v, warp_halo, gy0, gx0, lh, lw,
-                    cfg.max_disp, cfg.max_disp_v_effective,
-                    packed_u8=use_u8, packed_u16=use_u16,
-                    interpret=interpret,
-                )
+            warped = _warp_tile(
+                curr_ext, u, v, warp_halo, gy0, gx0, lh, lw
+            )
+            if use_kernel:
                 du, dv = _local_lk_pallas(
                     prev_t, warped, gy0, gx0, lh, lw, ty, tx,
                     cfg.window_size, cfg.det_threshold,
-                    interpret=interpret,
                 )
             else:
-                warped = _warp_tile(
-                    curr_ext, u, v, warp_halo, gy0, gx0, lh, lw
-                )
                 avg_ext = halo_mod.exchange_halo_2d(
                     (prev_t + warped) * 0.5, HALO, ty=ty, tx=tx,
                     boundary="symm",
@@ -342,14 +268,6 @@ def tiled_lucas_kanade_pyramidal(
     )
     def step(prev_l, curr_l):
         def one(prev_t, curr_t):
-            # The interpret context wraps the whole per-shard program so
-            # the REPLICATED-level pallas calls (_refine_level below runs
-            # the single-device fast path on the gathered coarse levels)
-            # are interpreted too, not just the sharded refine.
-            with _interpret_ctx(interpret):
-                return _one_impl(prev_t, curr_t)
-
-        def _one_impl(prev_t, curr_t):
             # --- Distributed pyramid build (fine -> coarse) ---------
             # Local tiles for every sharded level; full (replicated)
             # arrays for the rest, built from ONE gather of the
@@ -397,9 +315,9 @@ def tiled_lucas_kanade_pyramidal(
                         v = jnp.zeros((lh, lw), jnp.float32)
                     else:
                         u, v = jnp_ref.upsample_flow(u, v, (lh, lw))
-                    u, v = _refine_level(
+                    u, v, _ = _refine_level(
                         full_prev[lvl], full_curr[lvl], u, v, cfg,
-                        backend, rtl_clamp=True,
+                        level_backend,
                     )
                     continue
                 lh, lw = dims[lvl]
@@ -425,13 +343,7 @@ def tiled_lucas_kanade_pyramidal(
 
         # Static unrolled loop over the LOCAL batch instead of vmap:
         # equivalent XLA program for the serving case (local batch 1 —
-        # one frame pair per data-parallel shard), and it unblocks
-        # Pallas interpret mode, whose ordered IO effects refuse to run
-        # under shard_map+vmap but are fine under shard_map alone
-        # (measured round 4; the round-3 blocker was the vmap). This is
-        # what lets the CPU-mesh dryrun exercise the REAL kernel code
-        # path (__graft_entry__.dryrun_multichip stage 1b) rather than
-        # only the jnp twins.
+        # one frame pair per data-parallel shard).
         outs = [one(prev_l[i], curr_l[i]) for i in range(prev_l.shape[0])]
         return (
             jnp.stack([o[0] for o in outs]),

@@ -23,6 +23,8 @@ import sys
 
 import numpy as np
 
+from tpuflow.flow.backend import BACKENDS
+
 
 def _iter_frames(args):
     """Lazily yield grayscale float32 frames (incremental sessions must
@@ -113,7 +115,7 @@ def main() -> None:
     parser.add_argument("--init-depth", type=float, default=5.0)
     parser.add_argument("--ba-iterations", type=int, default=8)
     parser.add_argument("--backend", type=str, default="jnp",
-                        choices=["jnp", "pallas"])
+                        choices=BACKENDS)
     parser.add_argument("--pyramid-config", type=str, default="default",
                         help="named flow config for the front-end (e.g. "
                         "adaptive_vertical for the production vertical "

@@ -1,17 +1,16 @@
 """Exact-f32 matmul pinning for the VO/VI solver stack.
 
-On TPU, JAX's default matmul precision runs f32 matmuls as bf16 MXU
-passes. For the dense-flow kernels that demotion is handled per-op in
+On a GPU, JAX's default matmul precision may run f32 matmuls as TF32
+(10-bit mantissa) on the tensor cores; ``Precision.HIGHEST`` keeps
+them true f32. For the dense-flow operators that is pinned per-op in
 tpuflow.core.ops (SciPy parity needs it); the VO back-end's
-Gauss-Newton solvers were measured to need it too: with default
-precision, the TPU-jnp trajectory suite drifts far outside ANY
-cross-platform gate vs the CPU-captured baseline (dolly_z ate_rmse
-+407% at round-3 HEAD), because bf16-perturbed GN steps walk a
-different iteration path through the convergence-gated solve. The
-matrices involved are tiny (3x3 rotations, 6Kx6K dense systems for
-small K), so HIGHEST precision costs nothing measurable; with it
-pinned, TPU-jnp and CPU trajectories agree to the few-percent level
-(see eval/vo_verifier.py platform-provenance notes).
+Gauss-Newton solvers need it too: reduced-precision GN steps walk a
+different iteration path through the convergence-gated solve, and an
+accelerator's trajectories then drift far outside any cross-platform
+gate vs the CPU-captured baseline. The matrices involved are tiny (3x3
+rotations, 6Kx6K dense systems for small K), so HIGHEST precision
+costs nothing measurable (see eval/vo_verifier.py platform-provenance
+notes).
 
 Reference mechanism being kept honest: the committed-baseline
 regression gate of /root/reference/python/optical_flow_verifier.py:586-634,

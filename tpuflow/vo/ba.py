@@ -1,4 +1,4 @@
-"""Bundle adjustment with Schur-complement reduction, TPU-native.
+"""Bundle adjustment with Schur-complement reduction, in JAX.
 
 The BA back-end the BASELINE.json north star mandates (no reference
 counterpart — the reference stops at dense flow). Design:
@@ -7,17 +7,17 @@ counterpart — the reference stops at dense flow). Design:
   the whole Gauss-Newton step jits; dead observations carry zero weight.
 - Analytic-free Jacobians: per-observation (2x6, 2x3) blocks via
   ``jax.jacfwd`` of the residual at the identity tangent — exact, fused
-  by XLA, and batched with ``vmap`` (the TPU replacement for hand-derived
+  by XLA, and batched with ``vmap`` (the replacement for hand-derived
   BA Jacobian code).
 - Schur complement: landmark blocks are 3x3 (closed-form inverse); the
   reduced camera system S = H_pp - B H_ll^-1 B^T is assembled with
-  einsums that run on the MXU, then solved densely (6K x 6K for K
+  einsums, then solved densely (6K x 6K for K
   keyframes — small).
 - Distribution: shard the observation table across devices/hosts; every
   per-observation accumulation (H_pp, H_ll, B, b) is a local
   segment-sum followed by ``lax.psum`` over ``axis_name`` — the
-  "allreduce for the reduced camera system" over ICI/DCN. The dense
-  solve is replicated (tiny).
+  "allreduce for the reduced camera system" across devices and hosts.
+  The dense solve is replicated (tiny).
 
 Gauge freedom is fixed with a strong prior on camera 0.
 """
@@ -67,9 +67,9 @@ def reprojection_errors(p: BAProblem) -> jax.Array:
                        p.intrinsics)
         return jnp.linalg.norm(pred - uv)
 
-    # Exact f32: TPU default matmul precision demotes to bf16 MXU passes,
-    # which perturbs the GN iteration path enough to break cross-platform
-    # baseline comparison (TPU-jnp vs CPU-captured vo_baseline.json). The
+    # Exact f32: a GPU's default matmul precision may run TF32, which
+    # perturbs the GN iteration path enough to break cross-platform
+    # baseline comparison (vs the CPU-captured vo_baseline.json). The
     # matrices here are tiny; HIGHEST costs nothing.
     with jax.default_matmul_precision("highest"):
         e = jax.vmap(one)(p.obs_cam, p.obs_lm, p.obs_uv)
@@ -177,7 +177,7 @@ def gauss_newton_step(
 
     hll_inv = _inv3(hll)
 
-    # Reduced camera system (MXU einsums over landmark blocks):
+    # Reduced camera system (einsums over landmark blocks):
     # S = blockdiag(H_pp) - sum_m B_m H_ll,m^-1 B_m^T
     s = jnp.zeros((k, 6, k, 6))
     s = s.at[jnp.arange(k), :, jnp.arange(k), :].set(hpp)

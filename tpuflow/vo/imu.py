@@ -15,7 +15,7 @@ rotation-only edges (``PoseGraph.edge_mask`` zeroes the translation
 components, which a gyro does not observe). Accelerometer increments
 (dv, dp) are computed and tested but not yet tied into the graph —
 full IMU factors need velocity + bias states per keyframe, a larger
-state-space change recorded as future work (TODO.md).
+state-space change left as future work (ROADMAP R5).
 
 No reference counterpart (the reference stops at dense flow);
 SURVEY.md §5 lists the VO back-end as new-framework territory.

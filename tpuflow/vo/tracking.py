@@ -72,11 +72,10 @@ def seed_grid(
     gx = w // grid_step
     s = grid_step
     # Per-cell argmax WITHOUT the (gy, s, gx, s) -> (gy, gx, s, s)
-    # transpose (a full-plane relayout that measured more than the
-    # corner response itself on TPU, 0.185 vs 0.140 ms at 1080p, r5):
-    # reduce the cell max, then recover argmax's exact first-occurrence
-    # tie-breaking as the minimum within-cell row-major index among the
-    # maxima — three layout-friendly reductions, zero relayouts.
+    # transpose (a full-plane relayout): reduce the cell max, then
+    # recover argmax's exact first-occurrence tie-breaking as the
+    # minimum within-cell row-major index among the maxima — three
+    # layout-friendly reductions, zero relayouts.
     # Bit-identical to the argmax form (including all--inf margin cells,
     # where both pick local index 0).
     r4 = resp[: gy * s, : gx * s].reshape(gy, s, gx, s)
@@ -115,10 +114,8 @@ def sample_flow(
     Value-identical to ``ops.map_coordinates_bilinear`` per plane (same
     corner clamping, same lerp order, same hard-OOB zero), but issued
     as ONE flattened 1-D gather per plane instead of four 2-D advanced-
-    indexing gathers each: XLA lowers the (4N,) ``take`` far better on
-    TPU than the 2-D form (measured r5: the VO step's ``advance`` stage
-    was 0.344 ms at 1080p — two 2-D-gather sample_flows of ~8k tracks —
-    profile_vo decomposition, benchmarks/r05)."""
+    indexing gathers each (the ``advance`` stage of
+    ``tpuflow.eval.profile_vo`` times it)."""
     h, w = flow_u.shape
     x, y = xy[:, 0], xy[:, 1]
     x0f = jnp.floor(x)
